@@ -8,7 +8,7 @@
 // CENTERS (no jitter, cpu/renderer.cpp:45), depth 20, 1 spp per
 // ProgressiveRender() accumulated on the Film.  The weight-normalized
 // linear HDR average is written as a little-endian PFM for
-// benchmarks/ref_crossval.py to compare against the TPU oracle.
+// benchmarks/ref_crossval.py to compare against the jnp oracle.
 //
 // Usage: refcpu <preset> <width> <height> <frames> <seed> <out.pfm>
 //   preset in {default, light_test, material_test, cornell,

@@ -8,7 +8,8 @@ thing the reference cannot do (its OptiX AS is built once at Init and
 never refit, optix/renderer.cpp:703-871).
 
 Writes animated_refit_f{N}.png frames into examples/outputs/.
-Run with --platform cpu off-TPU.
+Runs on any platform (the bvh engine is plain JAX); --platform cpu forces
+the CPU.
 """
 
 from __future__ import annotations

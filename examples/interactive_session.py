@@ -1,21 +1,20 @@
 #!/usr/bin/env python
-"""Scripted interactive-session capture (VERDICT r4 item 6): the
-composition milestone — motion-adaptive PREVIEW twin while orbiting,
+"""Scripted interactive-session capture: the composition milestone — motion-adaptive PREVIEW twin while orbiting,
 ADAPTIVE-sampling steady-state refinement at rest, and the a-trous
 DENOISER on the displayed frame — driven through the REAL viewer loop
 (viewer/app.ViewerState._step, the main.cpp:194-549 analogue), not a
 synthetic benchmark.
 
 Two sessions, the verdict's bars:
-- mesh orbit  (bunny PLY) at 512x384: sustained >= 15 fps while orbiting
+- mesh orbit  (20k-triangle procedural mesh) at 512x384: sustained >= 15
+  fps while orbiting
 - sphere orbit (texture_demo) at 1280x720: sustained >= 10 fps
 
 Each session records sustained orbit fps (wall frames/sec over the
 whole motion phase, preview twin active), the steady-state per-stage
 ms trace (render/tonemap/encode from the viewer's own 100-frame
 history), and writes PNGs: the in-motion preview snapshot and the
-settled adaptive+denoised frame.  Summary lines go to stdout for the
-RESULTS.md ledger.
+settled adaptive+denoised frame.  Summary lines go to stdout.
 
 Usage: python examples/interactive_session.py [outdir]
 """
@@ -26,23 +25,16 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/jax_compilation"))
-
-import numpy as np  # noqa: E402
+import numpy as np
 
 
 def run_session(tag, scene, camera, cfg, engine, preview_scale, outdir,
                 orbit_s=6.0, settle_s=6.0, spin=10.0):
-    import jax
-
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.environ["JAX_COMPILATION_CACHE_DIR"])
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
-    except Exception:
-        pass
+    from parallelraytracing_tpu.utils.compile_cache import \
+        enable_compile_cache
     from parallelraytracing_tpu.viewer.app import ViewerState
+
+    enable_compile_cache()
 
     state = ViewerState(scene, camera, cfg, engine,
                         preview_scale=preview_scale,
@@ -127,17 +119,16 @@ def main():
 
     from parallelraytracing_tpu import RenderConfig, Scene, ScenePreset
     from parallelraytracing_tpu.core.camera import Camera
-    from parallelraytracing_tpu.core.scene import ply_showcase_scene
+    from parallelraytracing_tpu.core.scene import procedural_mesh_scene
 
-    # session 1: bunny mesh orbit at 512x384 (bar: >= 15 fps sustained)
-    s, cam_pos, look = ply_showcase_scene(
-        "/root/reference/assets/models/bunny.ply")
+    # session 1: mesh orbit at 512x384 (bar: >= 15 fps sustained)
+    s, cam_pos, look = procedural_mesh_scene(5)
     w, h = 512, 384
     cfg = RenderConfig(width=w, height=h, max_depth=8, seed=0,
                        russian_roulette_depth=2)
     cam = Camera(np.array([0.0, 12.0, 26.0]),
                  np.array([0.0, -6.0, -26.0]), float(w), float(h), 100.0)
-    mesh_fps, _, _ = run_session("bunny", s, cam, cfg, "adaptive", 3,
+    mesh_fps, _, _ = run_session("mesh", s, cam, cfg, "adaptive", 3,
                                  outdir)
 
     # session 2: sphere-scene orbit at 720p (bar: >= 10 fps sustained)

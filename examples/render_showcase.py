@@ -28,24 +28,25 @@ def main():
     from parallelraytracing_tpu import (Film, RenderConfig, Scene,
                                         ScenePreset, create_renderer)
 
-    on_tpu = jax.devices()[0].platform == "tpu"
-    fast = "fused" if on_tpu else "megakernel"  # fused interprets slowly on cpu
+    on_gpu = jax.devices()[0].platform == "gpu"
+    # the trace-kernel engines need a GPU; elsewhere the jnp engines
+    fast = "fused" if on_gpu else "megakernel"
+    mesh_engine = "wavefront_fused" if on_gpu else "bvh"
     from parallelraytracing_tpu.core.camera import Camera, default_camera
-    from parallelraytracing_tpu.core.mesh import load_ply
-    from parallelraytracing_tpu.utils.sync import device_sync
+    from parallelraytracing_tpu.core.mesh import icosphere
 
     scale = 0.5 if quick else 1.0
 
-    def render(name, scene, cam, engine, w, h, frames, depth=10):
+    def render(name, scene, cam, engine, w, h, frames, depth=10, **kw):
         w, h, frames = int(w * scale), int(h * scale), max(2, int(frames * scale))
-        cfg = RenderConfig(width=w, height=h, max_depth=depth, seed=0)
+        cfg = RenderConfig(width=w, height=h, max_depth=depth, seed=0, **kw)
         film = Film(w, h)
         r = create_renderer(engine)
         t0 = time.time()
         r.init(film, scene, cam, cfg)
         for _ in range(frames):
             r.progressive_render()
-        device_sync(film.accum)
+        jax.block_until_ready(film.accum)
         dt = time.time() - t0
         path = os.path.join(OUT, f"{name}.png")
         film.save_png(path)
@@ -57,26 +58,9 @@ def main():
            default_camera(256, 256), fast, 256, 256, 64)
 
     # Cornell with next-event estimation: converges in a fraction of the
-    # frames (in-kernel NEE on TPU, jnp NEE on cpu).
-    def render_nee(name, scene, cam, engine, w, h, frames, depth=10):
-        w, h, frames = int(w * scale), int(h * scale), max(2, int(frames * scale))
-        cfg = RenderConfig(width=w, height=h, max_depth=depth, seed=0,
-                           nee=True)
-        film = Film(w, h)
-        r = create_renderer(engine)
-        t0 = time.time()
-        r.init(film, scene, cam, cfg)
-        for _ in range(frames):
-            r.progressive_render()
-        device_sync(film.accum)
-        dt = time.time() - t0
-        path = os.path.join(OUT, f"{name}.png")
-        film.save_png(path)
-        print(f"{name:24s} {engine:10s} {w}x{h} {frames}f "
-              f"{dt:6.1f}s -> {path}", flush=True)
-
-    render_nee("cornell_nee_8spp", Scene(ScenePreset.CORNELL),
-               default_camera(256, 256), fast, 256, 256, 8)
+    # frames.
+    render("cornell_nee_8spp", Scene(ScenePreset.CORNELL),
+           default_camera(256, 256), fast, 256, 256, 8, nee=True)
 
     # Material test (the BSDF fixture, scene.cpp:307-330)
     render("material_test", Scene(ScenePreset.MATERIAL_TEST),
@@ -87,25 +71,24 @@ def main():
     render("random_balls_large", Scene(ScenePreset.RANDOM_BALLS_LARGE),
            Camera(pos, -pos, 640, 360), fast, 640, 360, 32, depth=20)
 
-    # BASELINE config 2: bunny PLY through the LBVH
-    mesh = load_ply("/root/reference/assets/models/bunny.ply")
+    # BASELINE config 2: a 20k-triangle procedural mesh through the BVH
     s = Scene(preset=None)
     body = s.add_lambertian((0.75, 0.65, 0.5))
-    s.add_mesh(mesh, body, ((8, 8, 8), (0, 180, 0), (0, 8.0, 0)))
+    s.add_mesh(icosphere(5, seed=1), body, ((8, 8, 8), (0, 0, 0), (0, 8, 0)))
     ground = s.add_lambertian((0.5, 0.5, 0.5))
     s.add_quad(100, 100, ground, None)
     light = s.add_emissive((12, 12, 12))
     s.add_sphere(3.0, light, ((1, 1, 1), (0, 0, 0), (12, 25, 12)))
     eye = np.array([0.0, 14.0, 28.0])
     look = np.array([0.0, 7.0, 0.0])
-    render("bunny", s, Camera(eye, look - eye, 512, 512),
-           "wavefront_fused" if on_tpu else "bvh", 512, 512, 8, depth=6)
+    render("mesh_20k", s, Camera(eye, look - eye, 512, 512), mesh_engine,
+           512, 512, 8, depth=6)
 
-    # BASELINE config 3-ish: dragon with specular + dielectric
-    mesh = load_ply("/root/reference/assets/models/dragon.ply")
+    # BASELINE config 3-ish: an 82k-triangle metal mesh beside glass
     s = Scene(preset=None)
     body = s.add_metal((0.8, 0.6, 0.4), 0.15)
-    s.add_mesh(mesh, body, ((10, 10, 10), (0, 200, 0), (0, 10, 0)))
+    s.add_mesh(icosphere(6, seed=3), body,
+               ((10, 10, 10), (0, 0, 0), (0, 10, 0)))
     glass = s.add_dielectric(1.5)
     s.add_sphere(3.0, glass, ((1, 1, 1), (0, 0, 0), (-12, 3, 8)))
     ground = s.add_lambertian((0.4, 0.4, 0.45))
@@ -114,47 +97,14 @@ def main():
     s.add_sphere(4.0, light, ((1, 1, 1), (0, 0, 0), (15, 30, 15)))
     eye = np.array([0.0, 16.0, 32.0])
     look = np.array([0.0, 8.0, 0.0])
-    render("dragon", s, Camera(eye, look - eye, 512, 512),
-           "wavefront_fused" if on_tpu else "bvh", 512, 512, 8, depth=8)
-
-    # Remaining reference PLY assets (assets/models/): feline and hand.
-    # Same shading families as the dragon/bunny showcases so every mesh
-    # the reference ships has a rendered proof through the TPU kernels.
-    mesh = load_ply("/root/reference/assets/models/feline.ply")
-    s = Scene(preset=None)
-    body = s.add_lambertian((0.62, 0.48, 0.35))
-    s.add_mesh(mesh, body, ((9, 9, 9), (0, 150, 0), (0, 9.0, 0)))
-    glass = s.add_dielectric(1.5)
-    s.add_sphere(2.5, glass, ((1, 1, 1), (0, 0, 0), (10, 2.5, 10)))
-    ground = s.add_lambertian((0.45, 0.5, 0.45))
-    s.add_quad(120, 120, ground, None)
-    light = s.add_emissive((11, 10, 9))
-    s.add_sphere(3.5, light, ((1, 1, 1), (0, 0, 0), (-12, 28, 14)))
-    eye = np.array([0.0, 14.0, 30.0])
-    look = np.array([0.0, 8.0, 0.0])
-    render("feline", s, Camera(eye, look - eye, 512, 512),
-           "wavefront_fused" if on_tpu else "bvh", 512, 512, 8, depth=8)
-
-    mesh = load_ply("/root/reference/assets/models/hand.ply")
-    s = Scene(preset=None)
-    body = s.add_metal((0.85, 0.75, 0.55), 0.2)
-    s.add_mesh(mesh, body, ((14, 14, 14), (-30, 210, 0), (0, 7, 0)))
-    ground = s.add_lambertian((0.42, 0.42, 0.5))
-    s.add_quad(120, 120, ground, None)
-    red = s.add_lambertian((0.75, 0.2, 0.15))
-    s.add_sphere(1.5, red, ((1, 1, 1), (0, 0, 0), (-7, 1.5, 8)))
-    light = s.add_emissive((12, 11, 10))
-    s.add_sphere(4.0, light, ((1, 1, 1), (0, 0, 0), (16, 30, 10)))
-    eye = np.array([0.0, 10.0, 17.0])
-    look = np.array([0.0, 6.0, 0.0])
-    render("hand", s, Camera(eye, look - eye, 512, 512),
-           "wavefront_fused" if on_tpu else "bvh", 512, 512, 8, depth=8)
+    render("mesh_82k_metal", s, Camera(eye, look - eye, 512, 512),
+           mesh_engine, 512, 512, 8, depth=8)
 
     # BASELINE config 4: multi-mesh scene through TRUE TLAS/BLAS
-    # instancing — geometry memory proportional to unique meshes (the
-    # bunny + icosahedron BLASes are stored once; 7 instances).
-    ico = load_ply("/root/reference/assets/models/icosahedron.ply")
-    bun = load_ply("/root/reference/assets/models/bunny.ply")
+    # instancing — geometry memory proportional to unique meshes (two
+    # procedural meshes, each BLAS stored once; 7 instances).
+    ico = icosphere(1, seed=2)
+    bun = icosphere(5, seed=1)
     s = Scene(preset=None)
     body = s.add_lambertian((0.7, 0.6, 0.45))
     s.add_mesh_instances(bun, body, [((6, 6, 6), (0, 160, 0), (0, 6, 0)),
@@ -173,14 +123,12 @@ def main():
     s.add_sphere(3.5, light, ((1, 1, 1), (0, 0, 0), (14, 26, 14)))
     eye = np.array([0.0, 12.0, 30.0])
     look = np.array([0.0, 5.0, 0.0])
-    # `tlas` is the fused in-kernel TLAS/BLAS fast path (~250x the jnp
-    # mirror); off-TPU use the jnp mirror `tlas_ref` (interpret-mode
-    # Pallas would crawl at this size).
+    # `tlas` is the fused in-kernel TLAS/BLAS path; without a GPU the
+    # jnp mirror `tlas_ref`
     render("multimesh_tlas", s, Camera(eye, look - eye, 512, 288),
-           "tlas" if on_tpu else "tlas_ref", 512, 288, 8, depth=6)
+           "tlas" if on_gpu else "tlas_ref", 512, 288, 8, depth=6)
 
-    # Round-3 extensions: checker textures (in-kernel on TPU) + thin-lens
-    # depth of field — the texture_demo preset with an open aperture
+    # Extensions: checker textures + thin-lens depth of field — the texture_demo preset with an open aperture
     # focused on the second sphere row.
     s = Scene(ScenePreset.TEXTURE_DEMO)
     eye = np.array([0.0, 4.0, 14.0])
@@ -194,7 +142,7 @@ def main():
     r.init(film, s, Camera(eye, look - eye, w, h), cfg)
     for _ in range(frames):
         r.progressive_render()
-    device_sync(film.accum)
+    jax.block_until_ready(film.accum)
     path = os.path.join(OUT, "texture_demo_dof.png")
     film.save_png(path)
     print(f"{'texture_demo_dof':24s} {fast:10s} {w}x{h} {frames}f "

@@ -1,7 +1,7 @@
 // Native image IO: zlib-backed PNG encoder for the film display path.
 //
 // The reference displays through CUDA-GL interop (src/opengl/*); headless
-// TPU hosts write PNGs instead, and the pure-Python row-filter loop is the
+// accelerator hosts write PNGs instead, and the pure-Python row-filter loop is the
 // bottleneck at 1080p (~1s).  This encodes RGBA8/RGB8 with Paeth-free
 // (filter 0) rows through zlib at memory speed.
 

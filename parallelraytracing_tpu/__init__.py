@@ -1,7 +1,8 @@
-"""parallelraytracing_tpu — a TPU-native progressive Monte Carlo path tracer.
+"""parallelraytracing_tpu — a progressive Monte Carlo path tracer in JAX.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of the CUDA/OptiX
-reference renderer (Rickyeeeeee/ParallelRayTracing): sphere/quad/triangle
+A JAX/XLA framework, with a Pallas (Triton) trace kernel for NVIDIA
+GPUs, with the capabilities of the CUDA/OptiX reference renderer
+(Rickyeeeeee/ParallelRayTracing): sphere/quad/triangle
 geometry, four analytic BSDFs (Lambertian, metal, dielectric, emissive),
 seven preset scenes, PLY mesh loading, an accumulating film with Reinhard
 tonemapping + gamma, an interactive orbit camera, and multiple
@@ -11,11 +12,14 @@ interchangeable rendering engines:
   reference's CUDA megakernel, src/backend/cuda_megakernel/renderer.cu).
 - ``wavefront``   — staged per-bounce kernels over a fixed-capacity SoA ray
   pool with sort-based stream compaction (the analogue of the reference's
-  CUDA wavefront queues, src/backend/cuda_wavefront/renderer.cu — TPUs have
-  no global atomics, so compaction replaces warp-aggregated queue pushes).
+  CUDA wavefront queues, src/backend/cuda_wavefront/renderer.cu — sort-
+  based compaction replaces warp-aggregated atomic queue pushes).
 - ``bvh``         — LBVH (Morton codes + binary radix tree) with stackless
   threaded traversal (the analogue of the reference's OptiX backend,
   src/backend/optix/renderer.cpp).
+- ``fused`` / ``wavefront_fused`` / ``sharded`` / ``adaptive`` — the GPU
+  trace kernel (ops/trace_kernel.py): one lane per path, state in
+  registers across bounces.
 
 Everything on the compute path is pure JAX (jnp + lax + Pallas); scenes are
 flat struct-of-array jnp buffers, not pointer graphs; the whole bounce loop

@@ -1,7 +1,7 @@
 """LBVH construction: Morton codes -> Karras binary radix tree -> threaded
 (stackless) layout.
 
-The TPU-native replacement for the reference's OptiX acceleration
+The JAX replacement for the reference's OptiX acceleration
 structures (GAS/IAS builds, optix/renderer.cpp:703-871): where OptiX hides
 the BVH behind `optixAccelBuild` + RT cores, we build a linear BVH over ALL
 primitives (spheres, quads, triangles in one tree — the reference builds
@@ -323,7 +323,7 @@ def _global_ordinals(scene: SceneData, kind: np.ndarray,
                      idx: np.ndarray) -> np.ndarray:
     """Global primitive ordinal = kind offset + within-kind index (spheres,
     quads, triangles) — the tie-break convention shared with
-    ops/intersect.py's scan order and ops/pallas_trace.py's ord columns, so
+    ops/intersect.py's scan order and ops/trace_kernel.py's ord columns, so
     coplanar equal-t hits resolve identically on every path."""
     n_sph = int(np.asarray(scene.sph_valid).shape[0])
     n_quad = int(np.asarray(scene.quad_valid).shape[0])

@@ -1,6 +1,6 @@
 """Two-level acceleration structure (TLAS over instances, BLAS per mesh).
 
-The TPU-native form of the reference's OptiX instance acceleration
+The JAX form of the reference's OptiX instance acceleration
 structure (IAS over per-geometry GASes with per-instance transforms,
 optix/renderer.cpp:833-870): each unique mesh gets ONE threaded LBVH over
 its LOCAL-space triangles (the BLAS), instances are {blas, transform,
@@ -13,9 +13,8 @@ non-instanced primitives needs no rescaling (the standard
 instancing identity; the reference gets it from OptiX's
 transform handling).
 
-Memory is proportional to UNIQUE meshes — the point of the exercise;
-Scene.add_mesh_instances previously baked every instance's triangles to
-world space (VERDICT round-1 missing item 2).
+Memory is proportional to UNIQUE meshes: Scene.add_mesh_instances
+stores each mesh once, never a world-space copy per instance.
 
 Traversal is the same per-lane threaded walk as accel/traverse.py with a
 2-deep implicit stack: a lane is either walking the TLAS (blas cursor
@@ -236,8 +235,11 @@ def tlas_intersect(tl: TwoLevelBVH, o: jax.Array, d: jax.Array,
         # renormalized -> local t == world t).
         ii = jnp.clip(inst, 0, tl.num_instances - 1)
         inv = tl.inst_inv[ii]                       # (R,3,4)
-        lo_new = jnp.einsum("rij,rj->ri", inv[:, :, :3], o) + inv[:, :, 3]
-        ld_new = jnp.einsum("rij,rj->ri", inv[:, :, :3], d)
+        # HIGHEST: a TF32 product would crack the instance-space rays
+        hi = jax.lax.Precision.HIGHEST
+        lo_new = jnp.einsum("rij,rj->ri", inv[:, :, :3], o,
+                            precision=hi) + inv[:, :, 3]
+        ld_new = jnp.einsum("rij,rj->ri", inv[:, :, :3], d, precision=hi)
         s["lo"] = jnp.where(enter[:, None], lo_new, s["lo"])
         s["ld"] = jnp.where(enter[:, None], ld_new, s["ld"])
         s["linv"] = jnp.where(enter[:, None], _safe_inv(ld_new), s["linv"])
@@ -307,7 +309,8 @@ def resolve_instanced_hit(tl: TwoLevelBVH, o, d, t, inst, tri, b1, b2):
     nl = (b0[:, None] * tl.n0[ti] + b1[:, None] * tl.n1[ti]
           + b2[:, None] * tl.n2[ti])
     nrm = tl.inst_nrm[ii]                          # (R,3,3)
-    nw = jnp.einsum("rij,rj->ri", nrm, nl)
+    nw = jnp.einsum("rij,rj->ri", nrm, nl,
+                    precision=jax.lax.Precision.HIGHEST)
     back = jnp.sum(nw * d, axis=1) > 0.0           # shape.h:294-302 flip
     nw = jnp.where(back[:, None], -nw, nw)
     nw = nw / jnp.maximum(jnp.linalg.norm(nw, axis=1, keepdims=True), 1e-30)

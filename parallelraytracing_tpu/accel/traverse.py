@@ -1,6 +1,6 @@
 """Vectorized stackless BVH traversal.
 
-The TPU analogue of the reference's OptiX raygen/IS/CH pipeline
+The JAX analogue of the reference's OptiX raygen/IS/CH pipeline
 (optix/device_programs.cu:161-511): each ray walks the threaded preorder
 layout of accel/lbvh.py — hit continues to node+1, miss jumps the escape
 link — so the whole batch advances in lockstep vector steps with no

@@ -10,6 +10,7 @@ Usage:
     python -m parallelraytracing_tpu.cli --scene cornell --frames 64 \
         --engine bvh --width 512 --height 512 --out cornell.png
     python -m parallelraytracing_tpu.cli --ply assets/bunny.ply --frames 16
+    python -m parallelraytracing_tpu.cli --mesh-level 7 --depth 8
     python -m parallelraytracing_tpu.cli --scene default \
         --resume ckpt.npz --checkpoint ckpt.npz
 """
@@ -24,7 +25,7 @@ import time
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="parallelraytracing_tpu",
-        description="TPU-native progressive path tracer")
+        description="progressive Monte Carlo path tracer (JAX, GPU kernels)")
     p.add_argument("--scene", default="random_balls_large",
                    help="preset name (default, light_test, material_test, "
                         "cornell, random_balls_{small,medium,large}, or "
@@ -33,11 +34,15 @@ def build_argparser() -> argparse.ArgumentParser:
                         "gradient + analytic-sun sky, Scene.set_sky)")
     p.add_argument("--ply", default=None,
                    help="render a PLY mesh instead of a preset")
+    p.add_argument("--mesh-level", type=int, default=None, metavar="L",
+                   help="render the seeded procedural mesh of 20*4^L "
+                        "triangles (core/mesh.icosphere; 7 = 327,680) "
+                        "instead of a preset")
     p.add_argument("--engine", default="auto",
                    help="auto (platform/scene-aware) | megakernel | "
                         "wavefront | bvh | wavefront_bvh | fused | "
-                        "wavefront_fused | tlas | sharded (fused over "
-                        "every available chip) | adaptive (fused + "
+                        "wavefront_fused | tlas | sharded (the kernel "
+                        "over every visible GPU) | adaptive (fused + "
                         "variance-guided per-pixel sample budgets)")
     p.add_argument("--width", type=int, default=960)
     p.add_argument("--height", type=int, default=540)
@@ -51,9 +56,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="sample pixel centers (reference CPU/CUDA behavior)")
     p.add_argument("--nee", action="store_true",
                    help="next-event estimation: sample emissive lights "
-                        "directly at diffuse hits (megakernel/bvh jnp "
-                        "engines and in-kernel in fused/wavefront_fused; "
-                        "much lower variance on emissive-lit scenes)")
+                        "directly at diffuse hits (every engine; much "
+                        "lower variance on emissive-lit scenes)")
     p.add_argument("--lens-radius", type=float, default=0.0,
                    help="thin-lens aperture radius in world units "
                         "(0 = pinhole, the reference behavior); enables "
@@ -98,7 +102,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--resume", default=None,
                    help="load film state and continue accumulating")
     p.add_argument("--platform", default=None,
-                   help="force jax platform (cpu for no-TPU runs)")
+                   help="force the jax platform (cpu runs the jnp "
+                        "engines only)")
     p.add_argument("--stats", action="store_true",
                    help="print per-stage timing each frame (the ImGui "
                         "timing-graph analogue, main.cpp:265-462)")
@@ -106,6 +111,16 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="probe platform/engines/native lib and exit (the "
                         "checkCUDA/checkOptiX analogue, main.cpp:46-83)")
     return p
+
+
+def pick_engine(scene, platform: str) -> str:
+    """--engine auto: the fused trace-kernel engine on a GPU (it matched
+    or beat the segmented wavefront_fused end to end on every scene
+    measured, PERF.md), the jnp engines elsewhere (the BVH traversal for
+    triangle-heavy scenes, brute force otherwise)."""
+    if platform == "gpu":
+        return "fused"
+    return "bvh" if scene.num_triangles > 512 else "megakernel"
 
 
 def main(argv=None) -> int:
@@ -119,13 +134,23 @@ def main(argv=None) -> int:
         from parallelraytracing_tpu.utils.diagnostics import run_diagnostics
         results = run_diagnostics()
         return 0 if all(v["ok"] for v in results.values()) else 1
+    render(args)
+    return 0
 
+
+def render(args) -> dict:
+    """Render as the parsed arguments say; returns {engine, frames,
+    first_frame_s, warm_ms_per_frame}."""
+    import jax
     import numpy as np
+
+    from parallelraytracing_tpu.utils.compile_cache import \
+        enable_compile_cache
+    enable_compile_cache()
 
     from parallelraytracing_tpu import (Film, RenderConfig, Scene,
                                         ScenePreset, create_renderer)
     from parallelraytracing_tpu.core.camera import Camera, default_camera
-    from parallelraytracing_tpu.utils.sync import device_sync
     from parallelraytracing_tpu.utils.timing import FrameTimer
 
     cfg = RenderConfig(width=args.width, height=args.height,
@@ -139,6 +164,10 @@ def main(argv=None) -> int:
     if args.ply:
         from parallelraytracing_tpu.core.scene import ply_showcase_scene
         scene, default_eye, default_look = ply_showcase_scene(args.ply)
+    elif args.mesh_level is not None:
+        from parallelraytracing_tpu.core.scene import procedural_mesh_scene
+        scene, default_eye, default_look = procedural_mesh_scene(
+            args.mesh_level, args.seed)
     else:
         scene = Scene(ScenePreset(args.scene))
         default_eye = (5.0, 5.0, 8.0)  # main.cpp:142-150
@@ -161,43 +190,39 @@ def main(argv=None) -> int:
         film = Film(args.width, args.height)
         start_frame = 0
 
-    if args.engine == "auto":
-        # Pick by platform and scene shape (measured optima, RESULTS.md):
-        # Pallas engines on TPU (segmented wavefront for triangle-heavy
-        # scenes, fused otherwise); jnp engines elsewhere (the Pallas
-        # interpreter is slow off-TPU).
-        on_tpu = jax.devices()[0].platform == "tpu"
-        tri_heavy = scene.num_primitives > 0 and len(scene._tri) > 512
-        # Image-textured scenes route to the jnp engines (the Pallas
-        # kernels refuse them loudly — per-lane gathers; checker is fine).
-        has_img_tex = any(t >= 2 for t in scene._mat_tex)
-        if on_tpu and not has_img_tex:
-            args.engine = "wavefront_fused" if tri_heavy else "fused"
-        else:
-            args.engine = "bvh" if tri_heavy else "megakernel"
+    engine = args.engine
+    if engine == "auto":
+        engine = pick_engine(scene, jax.devices()[0].platform)
 
-    renderer = create_renderer(args.engine)
+    renderer = create_renderer(engine)
     renderer.init(film, scene, cam, cfg)
     renderer._frame_index = start_frame
 
     timer = FrameTimer()
-    print(f"scene={args.ply or args.scene} engine={args.engine} "
+    dev = jax.devices()[0]
+    scene_name = args.ply or (f"mesh-level-{args.mesh_level}"
+                              if args.mesh_level is not None else args.scene)
+    print(f"scene={scene_name} engine={engine} "
           f"{args.width}x{args.height} depth={cfg.max_depth} "
-          f"prims={scene.num_primitives} device={jax.devices()[0]}")
+          f"prims={scene.num_primitives} device={dev.platform}:"
+          f"{dev.device_kind} x{len(jax.devices())}")
 
     t_all = time.time()
     for i in range(args.frames):
         with timer.stage("render"):
             renderer.progressive_render()
-            device_sync(film.accum)
+            jax.block_until_ready(film.accum)
         if args.stats:
             print(f"frame {start_frame + i:4d}  "
                   f"render {timer.last('render')*1e3:8.1f} ms  "
                   f"fps {1.0 / max(timer.last('render'), 1e-9):6.1f}")
     total = time.time() - t_all
-    print(f"{args.frames} frames in {total:.2f}s "
-          f"({args.frames / total:.2f} fps, "
-          f"{film.sample_count} samples accumulated)")
+    first = timer.history("render")[0] if args.frames else 0.0
+    warm = ((total - first) / (args.frames - 1) * 1e3
+            if args.frames > 1 else float("nan"))
+    print(f"{args.frames} frames in {total:.2f}s: first {first:.2f}s "
+          f"(compile included), warm {warm:.2f} ms/frame, "
+          f"{film.sample_count} samples accumulated")
 
     with timer.stage("tonemap"):
         if args.denoise > 0:
@@ -222,7 +247,8 @@ def main(argv=None) -> int:
 
     if args.stats:
         print(timer.summary())
-    return 0
+    return {"engine": engine, "frames": args.frames, "first_frame_s": first,
+            "warm_ms_per_frame": warm}
 
 
 if __name__ == "__main__":

@@ -40,7 +40,7 @@ class RenderConfig:
     # (optix/renderer.h:119). Default 20.
     max_depth: int = 20
     # Samples per pixel per progressive frame (reference is always 1;
-    # batching >1 spp per launch amortizes dispatch on TPU).
+    # batching >1 spp per frame amortizes per-frame dispatch).
     samples_per_frame: int = 1
     # Pixel jitter for anti-aliasing. The reference's OptiX backend jitters
     # (device_programs.cu:172-173) while CPU/megakernel/wavefront sample

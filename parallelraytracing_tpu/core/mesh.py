@@ -1,11 +1,10 @@
-"""PLY mesh loading.
+"""Triangle meshes: PLY loading and writing, and seeded procedural meshes.
 
-Replaces the reference's tinyply-based Mesh (/root/reference/src/core/
-mesh.{h,cpp}): reads vertex positions, optional per-vertex normals and
-texcoords, and triangle indices (uint32/uint16/int32 lists handled like
-mesh.cpp:129-146).  Supports ascii and binary_little_endian PLY — the
-formats the bundled assets use.  Activating this path (the reference
-declares Mesh but never instantiates it) enables the bunny/dragon configs.
+Replaces the reference's tinyply-based Mesh (src/core/mesh.{h,cpp}):
+reads vertex positions, optional per-vertex normals and texcoords, and
+triangle indices (uint32/uint16/int32 lists handled like
+mesh.cpp:129-146).  Supports ascii and binary_little_endian PLY.
+`icosphere` builds the mesh workloads without any asset file.
 """
 
 from __future__ import annotations
@@ -58,14 +57,8 @@ class Mesh:
 def subdivide(mesh: Mesh, levels: int = 1) -> Mesh:
     """Midpoint 1->4 triangle subdivision (no smoothing): each edge gains
     a deduplicated midpoint vertex; normals are angle-preserving
-    renormalized interpolations, texcoords linear.  Used to synthesize
-    canonical-scale stress meshes from the bundled simplified scans
-    (bunny.ply is 10k faces, dragon.ply 20k — BASELINE.md note): two
-    levels of the dragon give a 320k-triangle surface with identical
-    silhouette, the >=2^18-triangle regime the streamed big-mesh path
-    targets (the reference's OptiX backend would ingest such meshes via
-    optixAccelBuild, optix/renderer.cpp:703-765 — its CPU/CUDA backends
-    never did)."""
+    renormalized interpolations, texcoords linear.  icosphere() builds
+    its meshes of 20k to 1.3M triangles with it."""
     v = mesh.vertices.astype(np.float64)
     n = (mesh.normals.astype(np.float64)
          if mesh.normals is not None else None)
@@ -98,6 +91,79 @@ def subdivide(mesh: Mesh, levels: int = 1) -> Mesh:
                 indices=idx.reshape(-1).astype(np.uint32),
                 normals=None if n is None else n.astype(np.float32),
                 texcoords=None if t is None else t.astype(np.float32))
+
+
+_PHI = (1.0 + 5.0 ** 0.5) / 2.0
+#: the regular icosahedron: 12 vertices, 20 faces (counter-clockwise
+#: seen from outside)
+ICOSAHEDRON_VERTICES = np.array(
+    [[-1, _PHI, 0], [1, _PHI, 0], [-1, -_PHI, 0], [1, -_PHI, 0],
+     [0, -1, _PHI], [0, 1, _PHI], [0, -1, -_PHI], [0, 1, -_PHI],
+     [_PHI, 0, -1], [_PHI, 0, 1], [-_PHI, 0, -1], [-_PHI, 0, 1]],
+    np.float64)
+ICOSAHEDRON_FACES = np.array(
+    [[0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+     [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+     [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+     [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1]], np.uint32)
+
+
+def icosphere(level: int, seed: int = 0, relief: float = 0.08) -> Mesh:
+    """Seeded procedural mesh of 20 * 4**level triangles (level 5: 20,480;
+    level 7: 327,680; level 8: 1,310,720): the icosahedron subdivided
+    `level` times, projected onto the unit sphere and displaced along
+    the radius by a sum of seeded random waves, so the surface has
+    scan-like detail at every scale.  Vertex normals are recomputed from
+    the displaced faces."""
+    mesh = subdivide(Mesh(vertices=ICOSAHEDRON_VERTICES.astype(np.float32),
+                          indices=ICOSAHEDRON_FACES.reshape(-1)), level)
+    v = mesh.vertices.astype(np.float64)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    rng = np.random.default_rng(seed)
+    h = np.zeros(len(v))
+    for octave in range(6):
+        freq = 2.0 * 2.0 ** octave
+        for _ in range(4):
+            k = rng.normal(size=3)
+            k *= freq / np.linalg.norm(k)
+            h += np.sin(v @ k + rng.uniform(0.0, 2.0 * np.pi)) \
+                / 2.0 ** octave
+    v *= (1.0 + relief * h / 4.0)[:, None]
+    out = Mesh(vertices=v.astype(np.float32), indices=mesh.indices)
+    out.compute_vertex_normals()
+    return out
+
+
+def save_ply(path: str, mesh: Mesh, binary: bool = True) -> None:
+    """Write a triangle mesh as PLY (binary_little_endian or ascii):
+    float positions, normals when present, uchar/uint face lists."""
+    idx = np.asarray(mesh.indices, np.uint32).reshape(-1, 3)
+    cols = [np.asarray(mesh.vertices, np.float32)]
+    names = ["x", "y", "z"]
+    if mesh.normals is not None:
+        cols.append(np.asarray(mesh.normals, np.float32))
+        names += ["nx", "ny", "nz"]
+    vtx = np.concatenate(cols, axis=1)
+    header = "\n".join(
+        ["ply", "format " + ("binary_little_endian" if binary else "ascii")
+         + " 1.0", f"element vertex {len(vtx)}"]
+        + [f"property float {n}" for n in names]
+        + [f"element face {len(idx)}",
+           "property list uchar uint vertex_indices", "end_header"]) + "\n"
+    with open(path, "wb") as f:
+        f.write(header.encode("ascii"))
+        if binary:
+            f.write(vtx.astype("<f4").tobytes())
+            face = np.zeros(len(idx), [("n", "u1"), ("i", "<u4", 3)])
+            face["n"] = 3
+            face["i"] = idx
+            f.write(face.tobytes())
+        else:
+            for row in vtx:
+                f.write((" ".join(repr(float(x)) for x in row) + "\n")
+                        .encode("ascii"))
+            for tri in idx:
+                f.write(f"3 {tri[0]} {tri[1]} {tri[2]}\n".encode("ascii"))
 
 
 def load_ply(path: str, prefer_native: bool = True) -> Mesh:

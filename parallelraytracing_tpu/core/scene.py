@@ -220,7 +220,7 @@ class Scene:
           lerp(bottom, top, 0.5*(d_hat.y + 1)).
         - sun_direction/sun_color/sun_power: an analytic sun disc
           color * max(dot(d_hat, dir), 0)^power added on top.  power
-          must be a positive int (the Pallas kernels unroll it as
+          must be a positive int (the trace kernel unrolls it as
           static binary exponentiation).
 
         Runs in EVERY engine, including in-kernel; scenes that never
@@ -275,8 +275,8 @@ class Scene:
     def add_checker(self, even, odd, scale: float = 1.0) -> int:
         """Lambertian with a 3D checker albedo: cells of world-space size
         1/scale alternate between `even` and `odd`.  Position-based, so it
-        needs no UVs and runs in EVERY engine including the Pallas
-        kernels."""
+        needs no UVs and runs in EVERY engine including the trace
+        kernel."""
         odd = np.asarray(odd, dtype=np.float64)
         return self._add_material(
             MAT_LAMBERTIAN, albedo=even, tex=1,
@@ -293,11 +293,9 @@ class Scene:
 
     def add_textured_lambertian(self, texture_id: int) -> int:
         """Lambertian whose albedo is sampled (bilinear, repeat-wrapped)
-        from a registered image texture at the hit's UV.  Supported by the
-        jnp engines (megakernel/wavefront/bvh/tlas families); the Pallas
-        kernels raise at init (per-lane image gathers don't vectorize on
-        the VPU — procedural textures like add_checker are the TPU-kernel
-        path)."""
+        from a registered image texture at the hit's UV.  Supported by
+        every engine; the trace kernel fetches texels with per-lane
+        gathers."""
         assert 0 <= texture_id < len(self._textures), texture_id
         return self._add_material(MAT_LAMBERTIAN, albedo=(1.0, 1.0, 1.0),
                                   tex=2 + texture_id)
@@ -407,10 +405,14 @@ class Scene:
 
     @property
     def num_primitives(self) -> int:
-        inst_tris = sum(
+        return len(self._sph) + len(self._quad) + self.num_triangles
+
+    @property
+    def num_triangles(self) -> int:
+        """Triangles, each instance's counted once per instance."""
+        return len(self._tri) + sum(
             len(np.asarray(self._inst_meshes[mi].indices)) // 3
             for mi, _, _ in self._instances)
-        return len(self._sph) + len(self._quad) + len(self._tri) + inst_tris
 
     @property
     def instances(self):
@@ -656,9 +658,7 @@ def _init_texture_demo(scene: Scene) -> None:
     light = scene.add_emissive((6, 6, 6))
     scene.add_sphere(2.0, light, ((1, 1, 1), (0, 0, 0), (0.0, 12.0, 0.0)))
     # An IMAGE texture (32x32 procedural plaid) on a tilted back-wall
-    # quad: small enough for the in-kernel packed-u24 fetch
-    # (pallas_trace KTEX_MAX), so the demo renders on the fast Pallas
-    # engines as well as the jnp ones.
+    # quad.
     yy, xx = np.meshgrid(np.arange(32), np.arange(32), indexing="ij")
     img = np.stack([
         0.15 + 0.8 * ((xx // 8 + yy // 8) % 2),
@@ -667,8 +667,7 @@ def _init_texture_demo(scene: Scene) -> None:
     wall = scene.add_textured_lambertian(scene.add_texture(img))
     scene.add_quad(6, 4, wall, ((1, 1, 1), (90, 0, 0), (0.0, 4.0, -9.0)))
     # An image-textured SPHERE (procedural latitude-band globe): the
-    # r5 in-kernel equirect path (deferred UV from the carried center
-    # via vpu_atan2/vpu_asin) — renders on the Pallas engines too.
+    # equirect UV from the hit's direction to the center.
     gy, gx = np.meshgrid(np.arange(48), np.arange(96), indexing="ij")
     globe = np.stack([
         0.2 + 0.6 * (np.sin(gy * np.pi / 12.0) > 0),
@@ -714,17 +713,11 @@ _PRESET_BUILDERS = {
 }
 
 
-def ply_showcase_scene(path: str):
-    """The shared PLY showcase: the mesh (scaled 8x, turned to face the
+def mesh_showcase_scene(mesh):
+    """The shared mesh showcase: the mesh (scaled 8x, turned to face the
     camera) on a gray ground quad under an emissive sphere, with the
-    camera framing used by the CLI/viewer/benchmarks.
-
-    Returns (scene, eye, look_at).  One recipe so `cli --ply`,
-    `viewer --ply`, and the mesh benchmarks render the same image for
-    the same file (the reference's Mesh path was dormant — mesh.cpp is
-    never instantiated; this is its activated analogue)."""
-    from parallelraytracing_tpu.core.mesh import load_ply
-    mesh = load_ply(path)
+    camera framing used by the CLI/viewer/benchmarks.  Returns (scene,
+    eye, look_at)."""
     scene = Scene(preset=None)
     mat = scene.add_lambertian((0.75, 0.65, 0.5))
     scene.add_mesh(mesh, mat, ((8, 8, 8), (0, 180, 0), (0, 8, 0)))
@@ -733,3 +726,18 @@ def ply_showcase_scene(path: str):
     light = scene.add_emissive((12, 12, 12))
     scene.add_sphere(3.0, light, ((1, 1, 1), (0, 0, 0), (12, 25, 12)))
     return scene, (0.0, 14.0, 28.0), (0.0, 7.0, 0.0)
+
+
+def procedural_mesh_scene(level: int, seed: int = 0):
+    """mesh_showcase_scene of the seeded icosphere (core/mesh.icosphere:
+    20 * 4**level triangles)."""
+    from parallelraytracing_tpu.core.mesh import icosphere
+    return mesh_showcase_scene(icosphere(level, seed))
+
+
+def ply_showcase_scene(path: str):
+    """mesh_showcase_scene of a PLY file, so `cli --ply` and `viewer
+    --ply` render the same image for the same file (the reference's Mesh
+    path was dormant — mesh.cpp is never instantiated)."""
+    from parallelraytracing_tpu.core.mesh import load_ply
+    return mesh_showcase_scene(load_ply(path))

@@ -5,37 +5,9 @@ from parallelraytracing_tpu.engines.base import (
     Renderer, available_engines, create_renderer, register_engine)
 
 # Importing registers each engine.
-from parallelraytracing_tpu.engines import megakernel as _megakernel  # noqa: F401
-
-try:  # wavefront and bvh engines are added incrementally
-    from parallelraytracing_tpu.engines import wavefront as _wavefront  # noqa: F401
-except ImportError:  # pragma: no cover
-    pass
-try:
-    from parallelraytracing_tpu.engines import bvh as _bvh  # noqa: F401
-except ImportError:  # pragma: no cover
-    pass
-try:
-    from parallelraytracing_tpu.engines import fused as _fused  # noqa: F401
-except ImportError:  # pragma: no cover
-    pass
-try:
-    from parallelraytracing_tpu.engines import \
-        wavefront_fused as _wavefront_fused  # noqa: F401
-except ImportError:  # pragma: no cover
-    pass
-try:
-    from parallelraytracing_tpu.engines import tlas as _tlas  # noqa: F401
-except ImportError:  # pragma: no cover
-    pass
-try:
-    from parallelraytracing_tpu.engines import sharded as _sharded  # noqa: F401
-except ImportError:  # pragma: no cover
-    pass
-try:
-    from parallelraytracing_tpu.engines import adaptive as _adaptive  # noqa: F401
-except ImportError:  # pragma: no cover
-    pass
+from parallelraytracing_tpu.engines import (  # noqa: F401
+    adaptive, bvh, fused, megakernel, sharded, tlas, wavefront,
+    wavefront_fused)
 
 __all__ = ["Renderer", "available_engines", "create_renderer",
            "register_engine"]

@@ -2,11 +2,11 @@
 
 An extension with no reference analogue (every reference backend traces
 every pixel every frame, film.cu:57-99) — and a natural fit for how this
-framework already works on TPU:
+framework already works:
 
 - the fused engine's raygen/trace path takes an EXPLICIT pixel-id
   vector (engines/fused.raygen_ids), so "sample these pixels" is the
-  same compiled program as "sample all pixels", just shorter;
+  same kernel as "sample all pixels", over fewer rays;
 - the per-frame budget is STATIC (a fixed fraction of the frame,
   rounded to ray tiles), so one XLA program serves every frame — the
   selection changes as data, via jax.lax.top_k over the per-pixel
@@ -27,7 +27,6 @@ to the fused engine's.
 
 from __future__ import annotations
 
-import os
 from functools import partial
 
 import jax
@@ -35,7 +34,7 @@ import jax.numpy as jnp
 
 from parallelraytracing_tpu.engines.base import register_engine
 from parallelraytracing_tpu.engines.fused import FusedRenderer
-from parallelraytracing_tpu.ops.pallas_trace import LANES
+from parallelraytracing_tpu.ops.trace_kernel import BLOCK
 
 
 @partial(jax.jit, static_argnames=("budget",))
@@ -47,11 +46,7 @@ def _select_slots(m1, m2, n, valid, budget: int):
     var = jnp.maximum(m2 / jnp.maximum(n, 1.0) - mean * mean, 0.0)
     rel = jnp.sqrt(var / jnp.maximum(n, 1.0)) / (jnp.abs(mean) + 0.05)
     rel = jnp.where(valid, rel, -1.0)  # pad slots never selected
-    # argsort-based top-k: lax.top_k at k ~ half the frame lowers to a
-    # pathological O(n*k)-ish program on TPU (measured 1.2 s/frame at
-    # 512x384 — 16x the fused render it wraps); one descending argsort
-    # is the same machinery the wavefront compaction already pays at
-    # larger sizes for milliseconds (r5 fix)
+    # one descending argsort (the wavefront compaction's machinery)
     idx = jnp.argsort(-rel)[:budget]
     return jnp.sort(idx)
 
@@ -67,23 +62,18 @@ class AdaptiveRenderer(FusedRenderer):
 
     name = "adaptive"
 
-    #: the depth-probe reorder is untested against the variance-slot
-    #: bookkeeping below — keep it off here (set explicitly to combine)
-    depth_sort: int = 0
-
     #: full-frame warmup passes that seed the variance estimate
-    warmup: int = int(os.environ.get("PRT_ADAPT_WARMUP", "4"))
+    warmup: int = 4
     #: fraction of the frame traced per adaptive pass
-    budget: float = float(os.environ.get("PRT_ADAPT_BUDGET", "0.5"))
+    budget: float = 0.5
 
     def _post_init(self) -> None:
         super()._post_init()
         slots = int(self._ids.shape[0])
         r = self.config.pixel_count
         self._valid = self._ids < r
-        tile = self.rows * LANES
         b = int(r * self.budget)
-        b = max(tile, (b // tile) * tile)
+        b = max(BLOCK, (b // BLOCK) * BLOCK)
         self._budget_slots = min(b, slots)
         self._reset_stats()
 

@@ -24,6 +24,10 @@ class Renderer(abc.ABC):
     """One progressive sample pass per `progressive_render()` call."""
 
     name: str = "base"
+    #: init keeps a world-space copy of every instance's triangles in
+    #: the device scene; engines that trace instances in mesh-local space
+    #: (the trace kernel's TLAS/BLAS) turn this off
+    bake_instances: bool = True
 
     def __init__(self) -> None:
         self._film: Optional[Film] = None
@@ -41,10 +45,11 @@ class Renderer(abc.ABC):
         self._film = film
         self._config = config or RenderConfig(width=film.width, height=film.height)
         self._scene = scene
-        self._scene_data = jax.device_put(scene.build())
+        self._scene_data = jax.device_put(
+            scene.build(bake_instances=self.bake_instances))
         # QMC camera sampling (cfg.qmc): the frame-independent
         # Cranley–Patterson rotation seed, shared by every engine so the
-        # Pallas engines' bit-identity contract survives with QMC on.
+        # kernel engines' bit-identity contract survives with QMC on.
         from parallelraytracing_tpu.ops.rays import qmc_rotation_seed
         self._qseed = (qmc_rotation_seed(self._config.seed)
                        if self._config.qmc else None)

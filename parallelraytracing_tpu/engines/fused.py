@@ -1,50 +1,38 @@
-"""Fused engine: the Pallas megakernel (whole bounce loop in VMEM).
+"""Fused engine: a whole frame in one launch of the GPU trace kernel.
 
-The performance engine: unlike the jnp engines (whose per-bounce
-intermediates round-trip HBM), one kernel invocation traces a ray tile
-start-to-finish.  Two levers make the in-kernel hierarchy actually cull
-(VERDICT round-1 items 2-3):
+The performance engine for sphere and quad scenes: unlike the jnp
+engines, whose per-bounce intermediates round-trip device memory, one
+kernel launch traces every path from camera to termination with its
+state in registers (ops/trace_kernel.py).
 
-- acceleration structure: a threaded BVH over the Morton primitive
-  clusters, walked in lockstep inside the kernel (pallas_trace tree_walk)
-  — per-bounce cost ~O(visited nodes) instead of a linear scan of every
-  cluster.  PRT_TRAVERSAL=linear reverts to the flat cluster scan for
-  comparison.
-- ray coherence: camera rays are permuted into Morton (Z-order) of their
-  pixel coordinates before tracing, so each rows*128 kernel tile covers a
-  compact screen block instead of a 2048-pixel scanline strip.  Coherent
-  tiles enter fewer clusters AND die together (the kernel's whole-tile
-  early-exit fires sooner).  PRT_MORTON=0 disables for comparison.
-
-Uses interpret mode automatically off-TPU so it stays testable on CPU.
+Camera rays are generated directly in Morton (Z-order) pixel order, so a
+kernel block covers a compact screen tile and its warps walk the BVH
+coherently.  The film stores accumulation in that same order
+(film_layout), which moves the inverse permutation from every frame to
+display time.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from parallelraytracing_tpu.config import RenderConfig
 from parallelraytracing_tpu.engines.base import Renderer, register_engine
-from parallelraytracing_tpu.ops.pallas_trace import LANES
 from parallelraytracing_tpu.ops.rays import frame_stream_seeds
-
-
-def _on_tpu() -> bool:
-    return jax.devices()[0].platform == "tpu"
+from parallelraytracing_tpu.ops.trace_kernel import (check_platform,
+                                                      pack_scene,
+                                                      trace_paths)
 
 
 @functools.partial(jax.jit,
                    static_argnames=("width", "height", "jitter", "lens"))
 def raygen_ids(cam_params, ids, jseed, width: int, height: int,
                jitter: bool, lens=None, qpt=None):
-    """Jitted id-based raygen (kept separate from the bounce-loop jit —
-    see engines/megakernel.py on the compile-time gotcha).  qpt: the
-    sample's Halton point for QMC mode (ops/rays, cfg.qmc)."""
+    """Jitted raygen for an explicit pixel-id vector, with pixel-keyed
+    jitter.  qpt: the sample's Halton point in QMC mode (ops/rays)."""
     from parallelraytracing_tpu.ops.rays import generate_camera_rays_ids
     return generate_camera_rays_ids(cam_params, width, height, ids, None,
                                     jitter, pix_seed=jseed, lens=lens,
@@ -66,7 +54,7 @@ def morton_pixel_perm(width: int, height: int):
     """(perm, inv) int32 arrays mapping scanline pixel order <-> Morton
     (Z-order) pixel order: perm[i] = pixel id at sorted position i,
     inv[p] = sorted position of pixel p.  Host-side, cached per
-    resolution (static camera-independent layout)."""
+    resolution."""
     xx = _part1by1(np.arange(width, dtype=np.uint64))
     yy = _part1by1(np.arange(height, dtype=np.uint64)) << np.uint64(1)
     code = (yy[:, None] | xx[None, :]).reshape(-1)
@@ -78,174 +66,55 @@ def morton_pixel_perm(width: int, height: int):
 @register_engine
 class FusedRenderer(Renderer):
     name = "fused"
+    bake_instances = False
 
-    #: rows per tile: tile = rows*128 rays; 24 measured best after the
-    #: compressed fold cheapened per-primitive tests (RESULTS.md)
-    rows: int = int(os.environ.get("PRT_ROWS", "24"))
-
-    #: in-kernel sub-tile rows: each tile splits into independent
-    #: (sub_rows, 128) blocks with their own bounce loop / tree walks /
-    #: early exit — finer-grained cluster entry for divergent rays
-    #: without grid-level per-tile overhead.  0 = off.
-    sub_rows: int = int(os.environ.get("PRT_SUBROWS", "0"))
-
-    #: per-kind primitive count above which the table moves from SMEM
-    #: scalar layout to VMEM row layout (dynamic-sublane reads).
-    vmem_threshold: int = 2048
-
-    #: in-kernel culling structure: "auto" (per-kind by cluster count),
-    #: "tree" (threaded cluster-BVH walk) or "linear" (flat cluster scan).
-    accel: str = os.environ.get("PRT_TRAVERSAL", "auto")
-
-    #: Morton-order camera rays so kernel tiles are screen-space blocks.
-    morton_rays: bool = os.environ.get("PRT_MORTON", "1") != "0"
-
-    #: order linear-scan clusters nearest-the-eye first (ordered culling);
-    #: tables repack on set_camera.
-    front_to_back: bool = os.environ.get("PRT_F2B", "1") != "0"
-
-    #: depth-sorted ray tiles: a one-shot PROBE frame (kernel depth_out)
-    #: measures each ray's termination depth, and pixel ids are reordered
-    #: so tiles die TOGETHER — the straggler lanes that keep half the
-    #: tiles alive the full bounce budget (trace_stats, RESULTS.md) pack
-    #: into a few dense tiles.  Pixel-keyed RNG makes ANY ray order
-    #: bit-identical, so this is pure scheduling.  Re-probes on camera
-    #: change.  0 = off; 1 = global (depth major, Morton minor — trades
-    #: ALL spatial coherence for tile death); >= 8 = log2 rays per
-    #: Morton BLOCK, depth-sorting only within each screen block (keeps
-    #: coherence, dies locally).
-    depth_sort: int = int(os.environ.get("PRT_DEPTH_SORT", "0"))
-
-    def set_camera(self, camera) -> None:
-        super().set_camera(camera)
-        if self.front_to_back and hasattr(self, "_tables"):
-            # Cluster order is camera-dependent ONLY for linear-scan
-            # kinds (tables.eye_dependent); SAH trees are static.  The
-            # repack is a full host-side SAH rebuild (seconds at mesh
-            # scale), so skip it when no table actually depends on the
-            # eye, or when the eye hasn't moved since the last pack
-            # (the viewer's warm-engine cache re-selecting this engine).
-            eye = np.asarray(self._camera.position, np.float64)
-            if (self._tables.eye_dependent
-                    and not np.array_equal(eye,
-                                           getattr(self, "_pack_eye", None))):
-                self._pack_tables()
-        if self.depth_sort and hasattr(self, "_ids"):
-            # The depth field is camera-dependent: re-probe and refresh
-            # the film's shard-order layout (the film is cleared on
-            # camera move anyway — main.cpp:506-511 semantics).  Skip
-            # when the eye didn't move (warm-engine cache re-selection).
-            eye = np.asarray(self._camera.position, np.float64)
-            if not np.array_equal(eye, getattr(self, "_probe_eye", None)):
-                self._depth_reorder()
-                if getattr(self, "_film", None) is not None:
-                    self._film.set_layout(self.film_layout())
+    #: run the kernel in Triton interpret mode (CPU tests); off, the
+    #: engine refuses any platform but a CUDA GPU
+    interpret: bool = False
 
     def _post_init(self) -> None:
+        check_platform(self.interpret)
         self._pack_tables()
-        self._interpret = not _on_tpu()
         cfg = self.config
-        tile = self.rows * LANES
-        r = cfg.pixel_count
-        pad = (-r) % tile
-        # Gather-free frame path (measured ~10% of the headline): camera
-        # rays are generated DIRECTLY from (Morton-)permuted pixel ids —
-        # no o/d permutation gathers — and the film stores accumulation
-        # in the same order (film_layout), so the inverse gather moves
-        # from every frame to display time.  Pad slots get out-of-range
-        # ids (harmless dummy rays the film never reads).
-        if self.morton_rays:
-            perm, inv = morton_pixel_perm(cfg.width, cfg.height)
-        else:
-            perm = inv = np.arange(r, dtype=np.int32)
-        self._ids = jax.device_put(jnp.asarray(np.concatenate(
-            [perm, np.arange(r, r + pad)]).astype(np.int32)))
+        perm, inv = morton_pixel_perm(cfg.width, cfg.height)
+        self._ids = jax.device_put(jnp.asarray(perm))
         self._minv = jnp.asarray(inv)
-        if self.depth_sort:
-            self._depth_reorder()
 
-    def _depth_reorder(self) -> None:
-        """Probe one frame for per-ray termination depth and re-permute
-        the pixel ids (depth major, current rank minor) + the film's
-        inverse layout.  Frame-0 jitter stands in for every frame's (the
-        depth field is camera-dominated); image bit-identity is by the
-        pixel-keyed RNG (tested)."""
-        from parallelraytracing_tpu.engines.tables import trace_tables
-        cfg = self.config
-        skey = jax.random.fold_in(
-            jax.random.fold_in(jax.random.PRNGKey(cfg.seed),
-                               jnp.uint32(0)), jnp.uint32(0))
-        jseed, s0 = frame_stream_seeds(skey)
-        if cfg.qmc:
-            jseed = self._qseed
-        o, d = raygen_ids(self._cam_params, self._ids, jseed,
-                          cfg.width, cfg.height, cfg.jitter, cfg.lens,
-                          self._qpt(0, 0))
-        _, dd = trace_tables(self._tables, o, d,
-                             self._ids.astype(jnp.float32), s0[None],
-                             self.rows, cfg, self._interpret,
-                             depth_out=True)
-        self._probe_eye = np.asarray(self._camera.position,
-                                     np.float64).copy()
-        rp = int(self._ids.shape[0])
-        rank = jnp.arange(rp, dtype=jnp.int32)
-        ddc = jnp.clip(dd.astype(jnp.int32), 0, 31)
-        if self.depth_sort >= 8:
-            # depth-sort WITHIN 2^B-ray Morton blocks (stable argsort
-            # keeps the Morton order inside equal keys)
-            key = ((rank >> self.depth_sort) << 5) | ddc
-        else:
-            key = ddc * jnp.int32(rp) + rank  # global depth major
-        order = jnp.argsort(key)
-        self._ids = jnp.take(self._ids, order)
-        r = cfg.pixel_count
-        self._minv = jnp.zeros(r, jnp.int32).at[self._ids].set(
-            jnp.arange(rp, dtype=jnp.int32), mode="drop")
+    def _pack_tables(self) -> None:
+        self._tables = pack_scene(self._scene, self.config.nee)
 
     def film_layout(self):
         return self._minv, int(self._ids.shape[0])
-
-    def _pack_tables(self) -> None:
-        from parallelraytracing_tpu.engines.tables import build_scene_tables
-        eye = self._camera.position if self.front_to_back else None
-        self._tables, self._scene_data = build_scene_tables(
-            self._scene, self.config, accel=self.accel,
-            vmem_threshold=self.vmem_threshold, eye=eye)
-        self._pack_eye = (None if eye is None
-                          else np.asarray(eye, np.float64).copy())
 
     def render_sample_buffer(self, frame_index: int) -> jax.Array:
         return self._trace_ids(self._ids, frame_index)
 
     def _trace_ids(self, ids, frame_index: int) -> jax.Array:
-        """One frame's mean radiance for an EXPLICIT pixel-id vector (in
-        that order).  The full-frame path passes the Morton-permuted ids;
-        the adaptive engine passes a variance-selected subset — same RNG
-        derivation either way, so a pixel's streams depend only on
-        (pixel, frame), never on the selection."""
-        from parallelraytracing_tpu.engines.tables import trace_tables
+        """One frame's mean radiance for an explicit pixel-id vector (in
+        that order).  The full frame passes the Morton-ordered ids; the
+        adaptive engine passes a selected subset.  A pixel's streams
+        depend only on (pixel, frame), never on the selection."""
         cfg = self.config
         base = jax.random.fold_in(
             jax.random.PRNGKey(cfg.seed), jnp.uint32(frame_index))
-
         acc = None
         for s in range(cfg.samples_per_frame):
             skey = jax.random.fold_in(base, jnp.uint32(s))
-            # Pixel-keyed jitter + frame-keyed path seed: the ONE shared
-            # derivation (ops/rays.frame_stream_seeds), so fused ==
-            # sharded == wavefront_fused bit-for-bit (jitter on or off).
+            # the one shared seed derivation (ops/rays.frame_stream_seeds)
+            # keeps fused == sharded == wavefront_fused bit for bit; raygen
+            # stays its own jit, as in wavefront_fused, so XLA contracts
+            # the thin-lens arithmetic identically in both engines
             jseed, s0 = frame_stream_seeds(skey)
             if cfg.qmc:
-                # QMC: frame-independent rotation seed + per-sample
-                # Halton point; the path seed s0 stays plain MC.
                 jseed = self._qseed
             o, d = raygen_ids(self._cam_params, ids, jseed,
                               cfg.width, cfg.height, cfg.jitter, cfg.lens,
                               self._qpt(frame_index, s))
-            pix = ids.astype(jnp.float32)
-            seed = s0[None]
-            rad = trace_tables(self._tables, o, d, pix, seed, self.rows,
-                               cfg, self._interpret,
-                               sub_rows=self.sub_rows)
+            rad = trace_frame(self._tables, o, d, ids, s0, cfg,
+                              self.interpret)
             acc = rad if acc is None else acc + rad
         return acc / cfg.samples_per_frame
+
+
+#: the fused engine's trace step: every bounce of one sample in one jit
+trace_frame = jax.jit(trace_paths, static_argnames=("cfg", "interpret"))

@@ -4,9 +4,8 @@ The analogue of the reference's CUDA megakernel backend
 (src/backend/cuda_megakernel/renderer.cu:132-173: one thread = one pixel =
 full path).  A frame is two dispatches: a tiny camera-raygen jit and the
 path-trace jit holding the whole bounce loop (dispatch overhead is
-microseconds; keeping raygen in a separate XLA program sidesteps a
-pathological XLA-TPU compile-time blowup when the jittered threefry raygen
-graph feeds the while-loop carry — measured 230s -> ~6s total compile).
+microseconds; keeping raygen in a separate XLA program keeps the jittered
+threefry raygen graph out of the while-loop's compile).
 RNG is counter-based threefry keyed on (seed, frame, sample) — the pattern
 of the OptiX backend's per-frame PCG seeds (device_programs.cu:169) rather
 than persistent curand state."""

@@ -1,31 +1,19 @@
-"""Sharded engine: the fused Pallas megakernel over EVERY available chip.
+"""Sharded engine: the GPU trace kernel over every visible device.
 
-The multi-chip execution path as a first-class, user-selectable engine
-(CLI `--engine sharded`, viewer radio button) instead of a
-library-internal detail: a ("px","spp") `jax.sharding.Mesh` over all
-visible devices, each device tracing its pixel block through the same
-VMEM-resident megakernel, sample streams `psum`-reduced over ICI
-(parallel/sharding.render_frame_sharded_fused).  On a single chip it
-degenerates to a 1x1 mesh and matches the fused engine's cost; on a pod
-it is the scaling story (the role NCCL/multi-GPU would play in the
-reference, which is single-GPU only — SURVEY.md §2.4).
+A ("px","spp") `jax.sharding.Mesh` over all devices; each device traces
+its pixel block through the same kernel, and sample streams are
+`psum`-reduced over the "spp" axis (NVLink/NCCL between cards,
+parallel/sharding.render_frame_sharded_fused).  On one device it
+degenerates to a 1x1 mesh and costs what the fused engine costs.
 
-Subclasses FusedRenderer so the scene tables are packed by the SAME
-builder (engines/tables.build_scene_tables): every fused feature —
-NEE, hot/cold triangle split, in-kernel TLAS/BLAS instancing,
-front-to-back repack — works identically under `--engine sharded`.
-
-Determinism: the per-frame path/jitter seeds derive from the frame key
-only, the in-kernel RNG is keyed on GLOBAL pixel ids, and jitter is
-pixel-keyed — so for a fixed spp-axis size the image is bit-invariant
-to the device count and the px-shard/Morton layout (tested on the
-8-virtual-device CPU mesh); with jitter off it bit-matches the fused
-engine exactly.
+Determinism: the per-frame path and jitter seeds derive from the frame
+key only, the in-kernel RNG is keyed on global pixel ids, and jitter is
+pixel-keyed — so for a fixed spp-axis size the image is bit-invariant to
+the device count and the pixel-shard layout, and with spp_axis 1 it
+equals the fused engine's image (tests/test_trace_kernel.py).
 """
 
 from __future__ import annotations
-
-import os
 
 import jax
 import jax.numpy as jnp
@@ -40,123 +28,46 @@ from parallelraytracing_tpu.engines.fused import (FusedRenderer,
 class ShardedRenderer(FusedRenderer):
     name = "sharded"
 
-    #: devices on the sample axis (rest go to the pixel axis); 1 =
-    #: pure spatial data parallelism.
-    spp_axis: int = int(os.environ.get("PRT_SPP_AXIS", "1"))
+    #: devices on the sample axis (the rest go to the pixel axis)
+    spp_axis: int = 1
 
-    #: explicit device list for the mesh (None = all visible devices) —
-    #: lets harnesses validate an n-device mesh on a host exposing more.
+    #: explicit device list for the mesh (None = all visible devices)
     devices = None
 
-    #: keep the FILM in shard order too (Film.set_layout): accumulation
-    #: then stays px-sharded and the Morton inverse gather moves from
-    #: every frame to display time only (VERDICT r2 item 7).
-    defer_gather: bool = os.environ.get("PRT_DEFER_GATHER", "1") != "0"
-
-    #: per-device SEGMENTED tracing (the wavefront_fused engine under
-    #: shard_map: device-local compaction + octant/Morton re-sort between
-    #: bounce segments — no collectives touch the ray pool).  "auto"
-    #: routes triangle-heavy scenes through it (the growing-schedule mesh
-    #: win, RESULTS.md); "1"/"0" force.  Segment schedule follows the
-    #: wavefront_fused depth-aware default.
-    segmented: str = os.environ.get("PRT_SHARDED_SEGMENTED", "auto")
-    sort_rays: str = os.environ.get("PRT_SORT", "octant")
-
-    #: the fused depth-probe reordering acts on _ids, which the sharded
-    #: frame path never consumes (_sperm drives raygen) — keep it off.
-    depth_sort: int = 0
-
     def film_layout(self):
-        if not self.defer_gather:
-            return None
         return self._sinv, int(self._sperm.shape[0])
 
-    def _pack_tables(self) -> None:
-        # Segmented route: pack ONCE with the segment kernel's table
-        # shape (allow_partial=False — it carries 14 ray planes and the
-        # hot/cold split would blow the scoped-VMEM limit; no
-        # front-to-back eye order, SAH trees are static) instead of
-        # building the fused pack and discarding it.
-        if getattr(self, "_use_seg", False):
-            from parallelraytracing_tpu.engines.tables import \
-                build_scene_tables
-            self._tables, self._scene_data = build_scene_tables(
-                self._scene, self.config, accel=self.accel,
-                vmem_threshold=self.vmem_threshold, allow_partial=False)
-            self._pack_eye = None
-        else:
-            super()._pack_tables()
-
     def _post_init(self) -> None:
-        from parallelraytracing_tpu.ops.pallas_trace import LANES
         from parallelraytracing_tpu.parallel.sharding import (
-            make_render_mesh, render_frame_sharded_fused,
-            render_frame_sharded_segmented)
+            make_render_mesh, render_frame_sharded_fused)
 
-        n_tri = len(self._scene._tri) + sum(
-            len(m.indices) // 3
-            for m in getattr(self._scene, "_inst_meshes", []))
-        use_seg = (n_tri > 512 if self.segmented == "auto"
-                   else self.segmented not in ("0", "", "none"))
-        self._use_seg = use_seg
-        super()._post_init()  # packs self._tables (route-aware, above)
-
-        schedule = ()
-        if use_seg:
-            d = self.config.max_depth
-            if d > 10:
-                schedule = (2, 4, d - 6)
-            elif d > 4:
-                schedule = (2, d - 2)
+        super()._post_init()
 
         devs = (list(self.devices) if self.devices is not None
                 else list(jax.devices()))
-        n_dev = len(devs)
         spp = (self.spp_axis
-               if self.spp_axis >= 1 and n_dev % self.spp_axis == 0 else 1)
-        self._mesh = make_render_mesh(devs, spp_axis=spp)
+               if self.spp_axis >= 1 and len(devs) % self.spp_axis == 0
+               else 1)
+        mesh = self._mesh = make_render_mesh(devs, spp_axis=spp)
 
-        # Morton-order pixel ids so each device's block is a coherent
-        # screen region (the fused engine's 1.34x tile win); pad slots
-        # get out-of-range ids (harmless dummy rays).
+        # Morton-ordered pixel ids so each device's block is a coherent
+        # screen region; pad slots get out-of-range ids (dummy rays the
+        # film never reads)
         cfg = self.config
-        mesh = self._mesh
         n_px = mesh.shape["px"]
         r = cfg.pixel_count
         blk = -(-r // n_px)
-        blk += (-blk) % (self.rows * LANES)
-        if self.morton_rays:
-            mperm, minv = morton_pixel_perm(cfg.width, cfg.height)
-        else:
-            mperm = np.arange(r, dtype=np.int32)
-            minv = mperm
+        mperm, minv = morton_pixel_perm(cfg.width, cfg.height)
         self._sperm = jnp.asarray(np.concatenate(
             [mperm, np.arange(r, n_px * blk)]).astype(np.int32))
         self._sinv = jnp.asarray(minv)
+        interpret = self.interpret
 
-        rows = self.rows
-        interpret = self._interpret
-        defer = self.defer_gather
-
-        sort_rays = self.sort_rays
-
-        # one jitted entry per engine instance (statics close over the
-        # mesh/config; the tables pytree stays a traced arg)
-        if use_seg:
-            @jax.jit
-            def _frame(tables, cam, key, perm, inv, qpt=None):
-                return render_frame_sharded_segmented(
-                    tables, cam, key, cfg, mesh,
-                    rows=rows, schedule=schedule, sort_rays=sort_rays,
-                    interpret=interpret, perm=perm, inv=inv,
-                    defer_gather=defer, qpt=qpt)
-        else:
-            @jax.jit
-            def _frame(tables, cam, key, perm, inv, qpt=None):
-                return render_frame_sharded_fused(
-                    tables, cam, key, cfg, mesh,
-                    rows=rows, interpret=interpret, perm=perm, inv=inv,
-                    defer_gather=defer, qpt=qpt)
+        @jax.jit
+        def _frame(tables, cam, key, perm, qpt=None):
+            return render_frame_sharded_fused(
+                tables, cam, key, cfg, mesh, interpret=interpret,
+                perm=perm, qpt=qpt)
 
         self._frame_fn = _frame
 
@@ -168,7 +79,6 @@ class ShardedRenderer(FusedRenderer):
         for s in range(cfg.samples_per_frame):
             key = jax.random.fold_in(base, jnp.uint32(s))
             rad = self._frame_fn(self._tables, self._cam_params, key,
-                                 self._sperm, self._sinv,
-                                 self._qpt(frame_index, s))
+                                 self._sperm, self._qpt(frame_index, s))
             acc = rad if acc is None else acc + rad
         return acc / cfg.samples_per_frame

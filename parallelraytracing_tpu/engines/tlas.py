@@ -8,12 +8,10 @@ unique meshes (Scene.add_mesh_instances does not duplicate triangles).
 
 Two registrations:
 
-- `tlas` — the FAST path: the fused Pallas engine, whose kernel already
-  traces instances natively (in-kernel TLAS/BLAS, ops/pallas_trace.py).
+- `tlas` — the fast path: the fused engine, whose GPU trace kernel
+  traces instances natively (in-kernel TLAS/BLAS, ops/trace_kernel.py).
   Registered separately so "render instanced scenes through the
-  two-level structure" is an explicit, discoverable engine choice (the
-  round-2 registration routed here to the jnp mirror, a ~250x-slower
-  trap — VERDICT r2).
+  two-level structure" is an explicit, discoverable engine choice.
 - `tlas_ref` — the jnp gather-based mirror (accel/tlas.py traversal
   inside the megakernel loop).  Kept as the test oracle: it shares the
   jnp engines' threefry RNG streams, so instancing correctness is
@@ -84,10 +82,9 @@ def tlas_trace(scene: SceneData, bvh: BVHData, tl: TwoLevelBVH,
 
 @register_engine
 class TLASRenderer(FusedRenderer):
-    """The fast two-level path: the fused Pallas kernel with its
-    in-kernel TLAS/BLAS (instances traced natively in mesh-local space;
-    ~143 ms vs ~36 s for the jnp mirror on the multimesh showcase,
-    benchmarks/RESULTS.md)."""
+    """The fast two-level path: the fused engine's trace kernel with
+    its in-kernel TLAS/BLAS (instances traced natively in mesh-local
+    space)."""
 
     name = "tlas"
 

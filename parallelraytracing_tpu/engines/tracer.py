@@ -1,6 +1,6 @@
 """Shared iterative path-trace loop.
 
-The TPU-native form of the reference's iterative radiance/throughput loop
+The JAX form of the reference's iterative radiance/throughput loop
 (TraceRayGPU, cuda_megakernel/renderer.cu:81-119): the whole bounce loop is
 a `lax.while_loop` inside one jit — no per-bounce host sync, the same
 design goal the reference states for its wavefront loop

@@ -6,10 +6,10 @@ persisting across bounces (renderer.h:9-33), per-bounce
 intersect -> shade stages (renderer.cu:206-335), and ray queues that keep
 work proportional to *alive* rays.
 
-TPU translation of each piece:
+Translation of each piece:
 
-- Warp-aggregated atomic queue pushes (renderer.cu:43-100) have no TPU
-  equivalent (no global atomics).  Compaction is a cumsum prefix-sum
+- Warp-aggregated atomic queue pushes (renderer.cu:43-100) become a
+  deterministic compaction: a cumsum prefix-sum
   scatter: pos = cumsum(alive)-1; queue[pos] = ray_index — O(R), stable,
   and deterministic.
 - The reference launches full-screen-sized grids every bounce regardless of

@@ -1,32 +1,25 @@
-"""Wavefront-fused engine: Pallas bounce SEGMENTS + ray re-sorting.
+"""Wavefront-fused engine: kernel segments with queue compaction between.
 
-The TPU realization of the reference's wavefront architecture
-(cuda_wavefront/renderer.cu:372-434) built on what this hardware actually
-rewards.  The fused megakernel's whole-tile lockstep culling works only
-while a tile's rays agree on where they're going: primary rays (Morton
-pixel order) are coherent, but after one diffuse bounce a tile's rays fan
-out over the whole scene and the any-lane-hit test degrades toward brute
-force (measured 17x per-bounce cost jump on the bunny,
-benchmarks/RESULTS.md).  So:
+The reference's wavefront architecture (cuda_wavefront/renderer.cu:
+372-434) on the GPU trace kernel:
 
-- trace `segment` bounces inside one Pallas kernel (VMEM-resident, no
-  HBM between bounces — the fused engine's win);
-- between segments, compact dead rays out AND re-sort the survivors by
-  the Morton code of their current origin (one jnp argsort + plane
-  gathers — the TPU analogue of the wavefront queues, with sorting as
-  the divergence fix the reference lists as future work,
-  wavefront.md:45-120);
-- RNG is keyed on (pixel id, absolute depth) inside the kernel, so the
-  re-sort provably cannot change the image (tested bit-exact vs the
-  unsorted fused engine ordering in tests/test_wavefront_fused.py).
+- trace a segment of bounces in one kernel launch (ray state stays in
+  registers inside the segment);
+- between segments, compact dead rays out and re-sort the survivors by
+  direction octant and the Morton code of their origin (one argsort and
+  one stacked row gather), so the next segment's blocks are full and
+  their warps coherent — sorting as the divergence fix the reference
+  lists as future work (wavefront.md:45-120);
+- the RNG is keyed on (pixel id, absolute depth), so compaction and
+  sorting cannot change the image: it equals the fused engine's bit for
+  bit (tests/test_trace_kernel.py).
 
-The radiance of finished rays is scatter-added straight into the
-pixel-indexed frame between segments.
+Finished radiance rides the ray state and is scattered into the
+pixel-indexed frame once, at the end.
 """
 
 from __future__ import annotations
 
-import os
 from functools import partial
 
 import jax
@@ -34,14 +27,18 @@ import jax.numpy as jnp
 
 from parallelraytracing_tpu.config import RenderConfig
 from parallelraytracing_tpu.engines.base import Renderer, register_engine
-from parallelraytracing_tpu.engines.fused import morton_pixel_perm
-from parallelraytracing_tpu.ops import pallas_trace as _pt
-from parallelraytracing_tpu.ops.pallas_trace import LANES, pallas_segment
+from parallelraytracing_tpu.engines.fused import (morton_pixel_perm,
+                                                  raygen_ids)
 from parallelraytracing_tpu.ops.rays import frame_stream_seeds
+from parallelraytracing_tpu.ops.trace_kernel import (check_platform,
+                                                      pack_scene, padded,
+                                                      ray_planes,
+                                                      trace_segment)
 
-
-def _on_tpu() -> bool:
-    return jax.devices()[0].platform == "tpu"
+#: bounces per segment; the last entry repeats until max_depth.  The
+#: first compaction lands after bounce 2, when the rays that left the
+#: scene are gone.
+SCHEDULE = (2, 4, 14)
 
 
 def _part1by2(v: jax.Array) -> jax.Array:
@@ -54,304 +51,136 @@ def _part1by2(v: jax.Array) -> jax.Array:
     return v
 
 
-def _origin_morton(ox, oy, oz, bb_lo, inv_ext):
-    """30-bit Morton code of quantized ray origins (scene-bbox frame)."""
+def _sort_key(state, bb_lo, inv_ext, mode: str):
+    """Coherence key for the between-segment re-sort: "origin" is the
+    30-bit Morton code of the scene-box-quantized ray origin; "octant"
+    puts the direction octant (3 bits) above 27 origin bits."""
     def q(o, lo, ie):
         return jnp.clip((o - lo) * ie * 1024.0, 0.0, 1023.0).astype(jnp.int32)
-    return (_part1by2(q(ox, bb_lo[0], inv_ext[0])) << 2) \
-        | (_part1by2(q(oy, bb_lo[1], inv_ext[1])) << 1) \
-        | _part1by2(q(oz, bb_lo[2], inv_ext[2]))
-
-
-def _sort_key(state, bb_lo, inv_ext, mode: str):
-    """Coherence key for the between-segment re-sort.
-
-    "origin": 30-bit Morton of the ray origin (scene-bbox quantized).
-    "octant": direction octant (3 bits) majoring over 27 origin-Morton
-    bits — rays grouped by WHERE they are and WHICH WAY they point, the
-    joint locality the whole-tile any-lane-hit test actually needs."""
-    ox, oy, oz, dx, dy, dz = state[0], state[1], state[2], \
-        state[3], state[4], state[5]
-    m = _origin_morton(ox, oy, oz, bb_lo, inv_ext)
+    m = (_part1by2(q(state[0], bb_lo[0], inv_ext[0])) << 2) \
+        | (_part1by2(q(state[1], bb_lo[1], inv_ext[1])) << 1) \
+        | _part1by2(q(state[2], bb_lo[2], inv_ext[2]))
     if mode == "origin":
         return m
-    oct_ = ((dx < 0).astype(jnp.int32) << 2) \
-        | ((dy < 0).astype(jnp.int32) << 1) \
-        | (dz < 0).astype(jnp.int32)
+    oct_ = ((state[3] < 0).astype(jnp.int32) << 2) \
+        | ((state[4] < 0).astype(jnp.int32) << 1) \
+        | (state[5] < 0).astype(jnp.int32)
     return (oct_ << 27) | (m >> 3)
 
 
-@partial(jax.jit,
-         static_argnames=("rows", "segment", "cfg", "interpret",
-                          "sort_rays", "first_segment", "schedule"))
-def segmented_trace(tables, o, d, pix0, seed, rows: int, segment: int,
-                    cfg: RenderConfig, interpret: bool = False,
-                    sort_rays: str = "octant", first_segment: int = 0,
-                    schedule: tuple = ()):
-    """Returns (R,3) radiance for camera rays (o, d), indexed by the
-    original pixel ids pix0 (f32 (R,) — rays may arrive in any order,
-    e.g. Morton pixel order).
+def segment_lengths(schedule: tuple, max_depth: int) -> list:
+    """Per-segment bounce counts covering max_depth (the last entry of
+    schedule repeats)."""
+    out = []
+    k = 0
+    while sum(out) < max_depth:
+        s = schedule[min(k, len(schedule) - 1)]
+        out.append(min(int(s), max_depth - sum(out)))
+        k += 1
+    return out
 
-    tables: engines.tables.PallasSceneTables (carries the static scene
-    bbox for the origin quantization and every kernel feature flag).
 
-    first_segment > 0 makes the FIRST segment that many bounces (the
-    rest stay `segment` long): bounce 1 kills the sky-miss rays (~40%
-    of camera rays on the mesh workloads), so compacting + re-sorting
-    right after it hands the expensive middle bounces a denser, more
-    coherent pool.  `schedule` (a tuple of per-segment bounce counts,
-    last entry repeated to cover max_depth) overrides both.  RNG is
-    keyed on (pixel, absolute depth), so any schedule renders the
-    bit-identical image (tested)."""
+def _compact(order, pix, state):
+    """Permute the queue by `order` with one stacked row gather (pixel
+    ids ride as f32 bit patterns)."""
+    mat = jnp.take(jnp.stack(
+        [jax.lax.bitcast_convert_type(pix, jnp.float32), *state], axis=1),
+        order, axis=0)
+    return (jax.lax.bitcast_convert_type(mat[:, 0], jnp.int32),
+            [mat[:, k + 1] for k in range(13)])
+
+
+@partial(jax.jit, static_argnames=("cfg", "interpret", "sort_rays",
+                                   "schedule"))
+def segmented_trace(tables, o, d, pix, seed, cfg: RenderConfig,
+                    interpret: bool = False, sort_rays: str = "octant",
+                    schedule: tuple = SCHEDULE):
+    """(R, 3) radiance of camera rays (o, d), indexed by their pixel ids
+    pix (int32; rays may arrive in any order, e.g. Morton order)."""
     r = o.shape[0]
-    tile = rows * LANES
-    pad = (-r) % tile
-    rp = r + pad
-
-    def padp(x, c=0.0):
-        return jnp.pad(x, (0, pad), constant_values=c) if pad else x
-
-    pix = padp(pix0, float(rp))  # pad slots scatter to the drop row
-    o = jnp.stack([padp(o[:, 0]), padp(o[:, 1]), padp(o[:, 2])], axis=1)
-    d = jnp.stack([padp(d[:, 0]), padp(d[:, 1]), padp(d[:, 2], 1.0)],
-                  axis=1)
-    # Scatter slot = pixel id (output is pixel-ordered, length rp).
-    rad = _segmented_body(tables, o, d, pix, pix, jnp.int32(r), seed,
-                          rows, segment, cfg, interpret, sort_rays,
-                          first_segment, schedule, out_len=rp)
-    return rad[:r]
-
-
-def _segmented_body(tables, o, d, pix, loc, count, seed, rows: int,
-                    segment: int, cfg: RenderConfig, interpret: bool,
-                    sort_rays: str, first_segment: int, schedule: tuple,
-                    out_len: int):
-    """The segment loop on ALREADY-PADDED inputs (a tile multiple of
-    rows*128 rays).  `pix` (f32) keys the in-kernel RNG (GLOBAL pixel
-    ids — the invariance contract); `loc` (f32, exact ints < 2^24) are
-    the output scatter slots, letting a multi-chip caller scatter into
-    its device-LOCAL block while the RNG stays globally keyed.  Slots
-    >= out_len are dropped (padding).  Returns (out_len, 3) radiance."""
-    t = tables
-    max_depth = cfg.max_depth
-    t_min, t_max = cfg.t_min, cfg.t_max
-    rr_depth = cfg.russian_roulette_depth
-    sky = t.sky
-    rp = o.shape[0]
-    state = [o[:, 0], o[:, 1], o[:, 2],
-             d[:, 0], d[:, 1], d[:, 2],
-             jnp.ones(rp), jnp.ones(rp), jnp.ones(rp),      # throughput
-             jnp.zeros(rp), jnp.zeros(rp), jnp.zeros(rp)]   # radiance
-    alive_p = jnp.ones(rp)  # carries the NEE no-emit flag across segments
-    bb_lo, inv_ext = t.bb
-
-    seg_lens = []
-    if schedule:
-        for s in schedule:
-            if sum(seg_lens) >= max_depth:
-                break
-            seg_lens.append(min(int(s), max_depth - sum(seg_lens)))
-        segment = max(1, int(schedule[-1]))  # repeat the last entry
-    elif 0 < first_segment < max_depth:
-        seg_lens.append(first_segment)
-    while sum(seg_lens) < max_depth:
-        seg_lens.append(min(segment, max_depth - sum(seg_lens)))
-    n_segs = len(seg_lens)
+    rp = padded(r)
+    pix = jnp.pad(pix, (0, rp - r))  # pad slots are dead: slot >= count
+    count = jnp.int32(r)
+    state = ray_planes(o, d)
+    bb_lo, inv_ext = tables.bb
     depth0 = 0
-    for s in range(n_segs):
-        n_bounces = seg_lens[s]
-        scalars = jnp.stack([seed[0], jnp.int32(depth0),
-                             count]).astype(jnp.int32)
-        depth0 += n_bounces
-        state, alive = pallas_segment(
-            pix, (*state, alive_p), t.sph, t.quad, t.tri,
-            t.sph_cl, t.quad_cl, t.tri_cl, t.mats, t.lights, scalars,
-            rows, n_bounces, t_min, t_max, sky, interpret, rr_depth,
-            t.vmem_kinds, t.nee, t.inst, t.itri_vmem, t.tri_cold,
-            t.itri_cold, checker=t.checker, tri_stream=t.tri_stream,
-            tri_pack=t.tri_pack, tri_snode=t.tri_snode, itex=t.itex,
-            itex_tab=t.itex_tab,
-            frustum0=(s == 0 and bool(_pt.FRUSTUM0)))
-        state = list(state)
-        alive_p = alive
-
-        if s + 1 < n_segs:
-            # Compact + coherence-sort in ONE argsort: dead rays key to
-            # +inf, survivors order by origin Morton code.  Radiance rides
-            # the state, so the permutation costs exactly ONE stacked
-            # row-gather (13 x 4B rows) — per-plane gathers were measured
-            # 10x slower (benchmarks/RESULTS.md).
-            alive_b = alive > 0.0
-            if sort_rays:
-                key = _sort_key(state, bb_lo, inv_ext, sort_rays)
-            else:
-                key = jnp.arange(rp, dtype=jnp.int32)
-            key = jnp.where(alive_b, key, jnp.int32(2**30))
-            order = jnp.argsort(key)
-            count = jnp.sum(alive_b.astype(jnp.int32))
-            mat = jnp.stack([pix, loc, *state, alive_p], axis=1)
-            mat = jnp.take(mat, order, axis=0)
-            pix = mat[:, 0]
-            loc = mat[:, 1]
-            state = [mat[:, i + 2] for i in range(12)]
-            alive_p = mat[:, 14]
-
-    # One end-of-frame scatter puts radiance back in slot order.
-    rad = jnp.zeros((out_len + 1, 3), jnp.float32)  # last slot = dropped
-    lidx = jnp.minimum(loc.astype(jnp.int32), out_len)
-    rad = rad.at[lidx].add(jnp.stack(state[9:12], axis=1), mode="drop")
-    return rad[:out_len]
+    segs = segment_lengths(schedule, cfg.max_depth)
+    for s, n in enumerate(segs):
+        state = list(trace_segment(tables, pix, state, seed, depth0, count,
+                                   n, cfg, interpret))
+        depth0 += n
+        if s + 1 < len(segs):
+            alive = state[12] > 0.0
+            key = (_sort_key(state, bb_lo, inv_ext, sort_rays) if sort_rays
+                   else jnp.arange(rp, dtype=jnp.int32))
+            order = jnp.argsort(jnp.where(alive, key, jnp.int32(2 ** 30)))
+            count = jnp.sum(alive.astype(jnp.int32))
+            pix, state = _compact(order, pix, state)
+    # dead slots carry zero radiance, so their scatter adds nothing
+    return jnp.zeros((r, 3), jnp.float32).at[pix].add(
+        jnp.stack(state[9:12], axis=1))
 
 
-@partial(jax.jit,
-         static_argnames=("rows", "cfg", "interpret"))
-def count_frame_rays(tables, o, d, pix0, seed, rows: int,
-                     cfg: RenderConfig,
+@partial(jax.jit, static_argnames=("cfg", "interpret"))
+def count_frame_rays(tables, o, d, pix, seed, cfg: RenderConfig,
                      interpret: bool = False) -> jax.Array:
-    """EXACT ray count of one frame: camera rays + rays alive entering
-    every later bounce, measured by stepping the SAME pixel-keyed PCG
-    streams the Pallas engines trace (single-bounce segments, no
-    reordering).  This is the honest numerator for Mrays/s — the jnp
-    counter draws a different (threefry) stream and under/over-counts by
-    the stream difference."""
-    t = tables
-    max_depth = cfg.max_depth
-    t_min, t_max = cfg.t_min, cfg.t_max
-    rr_depth = cfg.russian_roulette_depth
+    """Exact ray count of one frame: camera rays plus the rays alive
+    entering every later bounce, by stepping the same pixel-keyed
+    streams the kernel engines trace in one-bounce segments."""
     r = o.shape[0]
-    tile = rows * LANES
-    pad = (-r) % tile
-    rp = r + pad
-
-    def padp(x, c=0.0):
-        return jnp.pad(x, (0, pad), constant_values=c) if pad else x
-
-    pix = padp(pix0, float(rp))
-    state = [padp(o[:, 0]), padp(o[:, 1]), padp(o[:, 2]),
-             padp(d[:, 0]), padp(d[:, 1]), padp(d[:, 2], 1.0),
-             jnp.ones(rp), jnp.ones(rp), jnp.ones(rp),
-             jnp.zeros(rp), jnp.zeros(rp), jnp.zeros(rp)]
-    alive_p = jnp.ones(rp)
+    rp = padded(r)
+    pix = jnp.pad(pix, (0, rp - r))
+    state = ray_planes(o, d)
     count = jnp.int32(r)
     total = jnp.int32(0)
-    for depth in range(max_depth):
+    for depth in range(cfg.max_depth):
         total = total + count
-        scalars = jnp.stack([seed[0], jnp.int32(depth),
-                             count]).astype(jnp.int32)
-        state, alive = pallas_segment(
-            pix, (*state, alive_p), t.sph, t.quad, t.tri,
-            t.sph_cl, t.quad_cl, t.tri_cl, t.mats, t.lights, scalars,
-            rows, 1, t_min, t_max, t.sky, interpret, rr_depth,
-            t.vmem_kinds, t.nee, t.inst, t.itri_vmem,
-            tri_cold=t.tri_cold, itri_cold=t.itri_cold,
-            checker=t.checker, tri_stream=t.tri_stream,
-            tri_pack=t.tri_pack, tri_snode=t.tri_snode,
-            itex=t.itex, itex_tab=t.itex_tab)
-        state = list(state)
-        alive_p = alive
-        # Compact survivors to the front (in_q masks the first `count`
-        # slots); order-stable, and RNG is pixel-keyed so the permutation
-        # cannot change the streams.
-        alive_b = alive > 0.0
-        key = jnp.where(alive_b, jnp.arange(rp, dtype=jnp.int32),
-                        jnp.int32(2**30))
-        order = jnp.argsort(key)
-        count = jnp.sum(alive_b.astype(jnp.int32))
-        mat = jnp.stack([pix, *state, alive_p], axis=1)
-        mat = jnp.take(mat, order, axis=0)
-        pix = mat[:, 0]
-        state = [mat[:, i + 1] for i in range(12)]
-        alive_p = mat[:, 13]
+        state = list(trace_segment(tables, pix, state, seed, depth, count,
+                                   1, cfg, interpret))
+        alive = state[12] > 0.0
+        order = jnp.argsort(jnp.where(alive, jnp.arange(rp, dtype=jnp.int32),
+                                      jnp.int32(2 ** 30)))
+        count = jnp.sum(alive.astype(jnp.int32))
+        pix, state = _compact(order, pix, state)
     return total
 
 
 @register_engine
 class WavefrontFusedRenderer(Renderer):
     name = "wavefront_fused"
+    bake_instances = False
 
-    rows: int = int(os.environ.get("PRT_ROWS", "24"))
-
-    #: bounces per Pallas kernel invocation between compaction/sorts.
-    #: Default is scene-aware (set in _post_init unless PRT_SEGMENT is
-    #: given): triangle-heavy scenes prefer LONGER segments once the
-    #: node splice cheapened the walk (measured post-splice optima,
-    #: RESULTS.md "Post-splice re-sweeps": bunny seg 3/4/5 =
-    #: 1006/934/921 ms, dragon seg 4/5/6 = 1243/1215/1253 ms; the
-    #: sphere sweep's seg=3 stands for non-mesh scenes).
-    segment: int = int(os.environ.get("PRT_SEGMENT", "3"))
-
-    #: between-segment re-sort key: "octant" (direction octant major,
-    #: origin Morton minor — the default), "origin", or "" (compact only).
-    sort_rays: str = {"0": "", "none": "", "1": "octant"}.get(
-        os.environ.get("PRT_SORT", "octant"),
-        os.environ.get("PRT_SORT", "octant"))
-
-    #: length of the FIRST segment only (0 = uniform `segment` schedule).
-    #: Bounce 1 retires the sky-miss rays, so an early compact+re-sort
-    #: densifies the pool before the expensive middle bounces.
-    segment_first: int = int(os.environ.get("PRT_SEGMENT_FIRST", "0"))
-
-    #: full per-segment schedule, e.g. "2,4,6" (last entry repeats to
-    #: cover max_depth); overrides segment/segment_first when non-empty.
-    schedule: tuple = tuple(
-        int(s) for s in os.environ.get("PRT_SCHEDULE", "").split(",") if s)
-
-    accel: str = os.environ.get("PRT_TRAVERSAL", "auto")
-    vmem_threshold: int = 2048
+    #: Triton interpret mode (CPU tests); see FusedRenderer.interpret
+    interpret: bool = False
+    #: bounces per segment (last entry repeats)
+    schedule: tuple = SCHEDULE
+    #: between-segment re-sort key: "octant", "origin" or "" (compact only)
+    sort_rays: str = "octant"
 
     def _post_init(self) -> None:
-        n_tri = len(self._scene._tri) + sum(
-            len(m.indices) // 3
-            for m in getattr(self._scene, "_inst_meshes", []))
-        if ("PRT_SEGMENT" not in os.environ
-                and "PRT_SCHEDULE" not in os.environ and n_tri > 512):
-            # Growing schedule for triangle-heavy scenes: compact+re-sort
-            # after bounce 2 (the sky-miss bulk) and bounce 6, then run
-            # the coherent tail in one segment.  Measured optima of the
-            # round-3 schedule sweeps (RESULTS.md): bunny 921 -> 679 ms,
-            # dragon 1215 -> 928 ms at 1080p/d20 via (2,4,14); multimesh
-            # d8 156 -> 145 ms via (2,6).
-            d = self.config.max_depth
-            self.segment = 5
-            if d > 10:
-                self.schedule = (2, 4, d - 6)
-            elif d > 4:
-                self.schedule = (2, d - 2)
-        from parallelraytracing_tpu.engines.tables import build_scene_tables
-        self._tables, self._scene_data = build_scene_tables(
-            self._scene, self.config, accel=self.accel,
-            vmem_threshold=self.vmem_threshold, allow_partial=False)
-        self._interpret = not _on_tpu()
+        check_platform(self.interpret)
+        self._tables = pack_scene(self._scene, self.config.nee)
         cfg = self.config
-        perm, inv = morton_pixel_perm(cfg.width, cfg.height)
+        perm, _ = morton_pixel_perm(cfg.width, cfg.height)
         self._perm = jax.device_put(jnp.asarray(perm))
 
     def render_sample_buffer(self, frame_index: int) -> jax.Array:
-        from parallelraytracing_tpu.engines.fused import raygen_ids
         cfg = self.config
         base = jax.random.fold_in(
             jax.random.PRNGKey(cfg.seed), jnp.uint32(frame_index))
         acc = None
         for s in range(cfg.samples_per_frame):
             skey = jax.random.fold_in(base, jnp.uint32(s))
-            # Morton pixel order for primary-segment coherence, generated
-            # DIRECTLY from the permuted ids (no o/d gathers) with
-            # pixel-keyed jitter — the ONE shared seed derivation
-            # (ops/rays.frame_stream_seeds), so the engines stay
-            # bit-identical; radiance comes back pixel-indexed (pix ids
-            # ride the queue).
+            # Morton-ordered camera rays, pixel-keyed jitter, the shared
+            # seed derivation (ops/rays.frame_stream_seeds)
             jseed, s0 = frame_stream_seeds(skey)
             if cfg.qmc:
-                jseed = self._qseed  # QMC: shared rotation seed (base.py)
+                jseed = self._qseed
             o, d = raygen_ids(self._cam_params, self._perm, jseed,
                               cfg.width, cfg.height, cfg.jitter, cfg.lens,
                               self._qpt(frame_index, s))
-            pix0 = self._perm.astype(jnp.float32)
-            seed = s0[None]
-            rad = segmented_trace(
-                self._tables, o, d, pix0, seed, self.rows, self.segment,
-                cfg, self._interpret, self.sort_rays,
-                first_segment=self.segment_first,
-                schedule=tuple(self.schedule))
+            rad = segmented_trace(self._tables, o, d, self._perm, s0, cfg,
+                                  self.interpret, self.sort_rays,
+                                  tuple(self.schedule))
             acc = rad if acc is None else acc + rad
         return acc / cfg.samples_per_frame

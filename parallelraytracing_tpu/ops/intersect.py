@@ -1,11 +1,11 @@
 """Brute-force closest-hit intersection over the whole scene.
 
-TPU-native replacement for the reference's O(N) primitive loops
+The JAX replacement for the reference's O(N) primitive loops
 (cuda_megakernel/renderer.cu:41-79, cuda_wavefront/renderer.cu:244-261,
 primitive.cpp:21-59): instead of one thread looping over primitives, all
 rays are tested against primitive *chunks* at once, with the per-(ray,prim)
 quantities factored into broadcast 3-term contractions (_rk_dot) plus
-elementwise VPU math, and a running closest-hit fold carried through a
+elementwise math, and a running closest-hit fold carried through a
 `lax.scan` over chunks — so the working set stays O(R * chunk), never
 O(R * N * 3).
 
@@ -43,11 +43,12 @@ _BIG = 3.0e38  # plain float: keeps package import from initializing a jax backe
 def _rk_dot(a: jax.Array, b: jax.Array) -> jax.Array:
     """(R,3)x(K,3) -> (R,K) contraction as explicit broadcast FMAs.
 
-    Deliberately NOT a matmul: XLA's default TPU matmul precision truncates
-    f32 operands to bf16 for the MXU, which destroys the intersection
-    discriminants (values ~1e3 would lose ~1 absolute precision and the
-    image grows corduroy artifacts).  A K=3 contraction gains nothing from
-    the 128x128 MXU anyway — three VPU FMAs are both exact-f32 and faster."""
+    Deliberately NOT a matmul: a reduced-precision matmul (TF32 on
+    GPU tensor cores, XLA's default for f32 dots) destroys the
+    intersection discriminants (values ~1e3 would lose ~1 absolute
+    precision and the image grows corduroy artifacts).  A K=3
+    contraction gains nothing from matrix units anyway — three
+    elementwise FMAs are both exact-f32 and faster."""
     return (a[:, 0:1] * b[None, :, 0]
             + a[:, 1:2] * b[None, :, 1]
             + a[:, 2:3] * b[None, :, 2])
@@ -92,7 +93,7 @@ def _fold_best(carry, t, hit, front, idx_base, kind, ord_base):
 
     Ties at identical t resolve to the lowest GLOBAL ordinal
     (ord = kind offset + within-kind index, the same convention as the BVH
-    and Pallas paths), matching the reference's strict-< first-wins scan
+    and kernel paths), matching the reference's strict-< first-wins scan
     (primitive.cpp:42-48).  Within a chunk argmin already picks the lowest
     index; across chunks/kinds the carried ordinal decides."""
     best_t, best_kind, best_idx, best_front, best_ord = carry
@@ -184,7 +185,7 @@ def intersect_scene(scene: SceneData, o: jax.Array, d: jax.Array,
              jnp.full((r,), 2**30, jnp.int32))
 
     # Global ordinal offsets: spheres, then quads, then triangles — shared
-    # with accel/lbvh.py and ops/pallas_trace.py so equal-t ties resolve to
+    # with accel/lbvh.py and ops/trace_kernel.py so equal-t ties resolve to
     # the same primitive on every path.
     n_sph = scene.sph_center.shape[0]
     n_quad = scene.quad_normal.shape[0]

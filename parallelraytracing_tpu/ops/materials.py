@@ -2,9 +2,9 @@
 
 Replaces the reference's tagged-pointer dispatch
 (/root/reference/src/core/tagged_pointer.h:10-117,
-material.h:139-161): on TPU all four BSDFs are evaluated masked and the
-result selected by material type code — they are a handful of VPU ops each,
-far cheaper than serializing `lax.switch` branches.
+material.h:139-161): all four BSDFs are evaluated masked and the result
+selected by material type code — they are a handful of elementwise ops
+each, far cheaper than serializing `lax.switch` branches.
 
 BSDF semantics are faithful replicas of material.h:
 - Lambertian (11-41): scatter dir = normal + random unit vector, with the

@@ -169,7 +169,7 @@ def _rot(u: jax.Array, off: jax.Array) -> jax.Array:
 
 
 def frame_stream_seeds(skey: jax.Array) -> Tuple[jax.Array, jax.Array]:
-    """THE per-(frame, sample) seed derivation every Pallas engine and
+    """THE per-(frame, sample) seed derivation every kernel engine and
     instrument shares: split the sample key into the pixel-jitter seed
     (uint32 scalar, feeds pixel_keyed_jitter) and the in-kernel path
     seed (int32 scalar).  fused / wavefront_fused / sharded, bench.py's
@@ -188,7 +188,7 @@ def _pixel_u01(idx: jax.Array, seed: jax.Array, salt: int) -> jax.Array:
     """[0,1) uniform from a stateless PCG hash of (pixel id, seed, salt) —
     the raygen-side twin of the in-kernel pixel-keyed streams.  Salts in
     use: 101/102 = sub-pixel jitter, 103/104 = thin-lens aperture."""
-    from parallelraytracing_tpu.ops.pallas_trace import _pcg_hash
+    from parallelraytracing_tpu.ops.trace_kernel import _pcg_hash
     base = idx.astype(jnp.uint32) ^ seed.astype(jnp.uint32)
     bits = _pcg_hash(base ^ jnp.uint32((salt * 0x9E3779B9) & 0xFFFFFFFF))
     return (bits >> 8).astype(jnp.int32).astype(jnp.float32) \

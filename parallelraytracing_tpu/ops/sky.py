@@ -13,7 +13,7 @@ path):
 
 Directions from the BSDFs are NOT unit length (Lambertian scatter is
 normal + unit vector, material.h:11-41), so d is normalized here; the
-Pallas kernels (ops/pallas_trace.py miss block) implement the identical
+trace kernel (ops/trace_kernel.py miss block) implements the identical
 math with a static spec so every engine agrees bit-for-bit on shared
 streams (tests/test_sky.py).
 """

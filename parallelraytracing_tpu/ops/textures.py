@@ -2,16 +2,12 @@
 
 An extension over the reference, which loads mesh texcoords but never
 samples them (/root/reference/src/core/mesh.cpp:84-104 reads "u","v";
-no material in material.h consumes a texture).  The design is split by
-what the TPU rewards:
+no material in material.h consumes a texture).  Two kinds:
 
 - the CHECKER is position-based (floor-parity of the world-space hit
-  point): a handful of VPU elementwise ops, no gathers, so it runs in
-  every engine including the Pallas megakernels;
-- IMAGE textures are per-lane bilinear gathers from an atlas — XLA
-  vectorizes these fine in the jnp engines, but per-lane dynamic
-  indexing does not map onto the Pallas VPU lanes, so the Pallas
-  engines refuse image-textured scenes loudly at init (engines/tables).
+  point): a handful of elementwise ops, no gathers;
+- IMAGE textures are per-lane bilinear gathers from an atlas (the trace
+  kernel fetches the four texels of each lane from its texel table).
 
 Texture codes in SceneData.mat_tex: 0 = none, 1 = checker
 (mat_tex_param = [cell scale, odd rgb]), >= 2 = image id (tex - 2).
@@ -32,7 +28,7 @@ TEX_IMAGE_BASE = 2
 #: walls) sit MID-cell instead of exactly on a boundary — on a boundary
 #: the hit point's float jitter flips floor() per pixel and the checker
 #: aliases into noise (observed on the texture_demo floor).  The same
-#: constant is baked into the Pallas kernel's checker (pallas_trace).
+#: constant is baked into the trace kernel's checker (ops/trace_kernel).
 CHECKER_OFFSET = 0.3183098861
 
 
@@ -40,7 +36,7 @@ def checker_weight(pos: jax.Array, scale: jax.Array) -> jax.Array:
     """(R,) in {0,1}: parity of the world-space checker cell at pos.
 
     floor-parity (not the RTIOW sin product) — three floors + adds beat
-    three transcendentals on a VPU, and cells are exact cubes of edge
+    three transcendentals, and cells are exact cubes of edge
     1/scale."""
     c = jnp.floor(pos * scale[:, None] + CHECKER_OFFSET)
     return jnp.abs(jnp.mod(c[:, 0] + c[:, 1] + c[:, 2], 2.0))

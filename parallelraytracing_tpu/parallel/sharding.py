@@ -1,8 +1,8 @@
-"""Multi-chip rendering: shard_map over a ("px", "spp") device mesh.
+"""Multi-device rendering: shard_map over a ("px", "spp") device mesh.
 
 The reference is strictly single-process single-GPU; its only parallel axis
-is pixels within one device (SURVEY.md §2.4).  The TPU-native scale-out
-axes for a path tracer are:
+is pixels within one device (SURVEY.md §2.4).  The scale-out axes for a
+path tracer are:
 
 - "px"  — spatial data parallelism: each chip generates and traces a
   contiguous block of pixels (the tile/grid analogue of
@@ -10,14 +10,14 @@ axes for a path tracer are:
   The scene is replicated; no communication during tracing.
 - "spp" — sample parallelism: chips render the SAME pixel block with
   different sample streams; the per-frame film contribution is their
-  `psum` riding ICI — the multi-chip generalization of
-  Film::AddSampleBufferGPU (film.cu:79-99).
+  `psum`, which XLA hands to NCCL over NVLink — the multi-device
+  generalization of Film::AddSampleBufferGPU (film.cu:79-99).
 
 Both axes compose in one 2D mesh.  Radiance is psum'd over "spp", leaving
 the frame sharded over "px"; the film can stay px-sharded, gathering only
-for display.  Everything is `shard_map` + explicit collectives so XLA
-schedules the psum over ICI; the mesh IS the communication backend — there
-is no NCCL/MPI analogue to port (SURVEY.md §2.4, §5).
+for display.  Everything is `shard_map` + explicit collectives; every card
+of an NVLink host reaches every other at the same rate, so the mesh
+follows the algorithm alone (SURVEY.md §2.4, §5).
 """
 
 from __future__ import annotations
@@ -112,7 +112,7 @@ def render_frame_sharded(
             acc = jax.lax.fori_loop(0, cfg.samples_per_frame, one_sample, acc)
         else:
             acc = one_sample(0, acc)
-        # Sum the sample streams across the "spp" axis (ICI collective).
+        # Sum the sample streams across the "spp" axis.
         return jax.lax.psum(acc, axis_name="spp")
 
     shard = jax.shard_map(
@@ -136,203 +136,78 @@ def render_frame_sharded_jit(scene, cam_params, key, cfg, mesh, qpt=None):
     return render_frame_sharded(scene, cam_params, key, cfg, mesh, qpt)
 
 
-def _sharded_pallas_frame(trace_block, cfg, mesh, rows, perm, inv,
-                          defer_gather, tables, cam_params, key, qpt):
-    """Shared multi-chip driver for the Pallas engines: block math, the
-    device-independent seed/QMC derivation, the ("px","spp") shard_map
-    wrapper with the spp-axis psum, the degenerate-1x1 fast path, and
-    the output gather — parameterized ONLY by trace_block(t, cam, seed0,
-    jseed0, ids, spp_i, qpt) -> (blk, 3), so the fused and segmented
-    routes cannot drift apart.
+def render_frame_sharded_fused(tables, cam_params: jax.Array,
+                               key: jax.Array, cfg: RenderConfig,
+                               mesh: Mesh, interpret: bool = False,
+                               perm: jax.Array | None = None,
+                               qpt: jax.Array | None = None) -> jax.Array:
+    """Multi-device frame through the trace kernel: each ("px","spp")
+    device traces its pixel block with every bounce in one launch, and
+    the sample streams are psum'd over "spp".  tables
+    (ops/trace_kernel.SceneTables) replicate to every device.  perm: a
+    pixel-id order of length n_px*blk (Morton order padded with
+    out-of-range ids, so each device traces a coherent screen block;
+    None = scanline order).  Returns the (n_px*blk, 3) frame in perm
+    order (the film keeps that layout, so accumulation stays
+    px-sharded).
 
-    Determinism contract (both routes): the path seed and the jitter
-    seed derive from the FRAME key only (never the device), the
-    in-kernel RNG is keyed on GLOBAL pixel ids, and jitter is
-    pixel-keyed — so for a fixed spp-axis size the image is
-    bit-invariant to device count, px-shard layout and perm.  The spp
-    axis is the one sampled dimension: spp shard i draws sample
-    stream i.
-
-    Scope: the bit-invariance is exact for pinhole cameras.  With the
-    thin-lens aperture OPEN (cfg.lens_radius > 0) XLA may fma-contract
-    the lens mul-adds differently inside shard_map than in the
-    single-chip raygen, so isolated pixels can differ by ~1 ulp across
-    device counts (the sample STREAMS stay identical — tested in
-    tests/test_feature_matrix.py)."""
-    from parallelraytracing_tpu.ops.pallas_trace import LANES
-    from parallelraytracing_tpu.ops.rays import frame_stream_seeds
+    Determinism contract: the path and jitter seeds derive from the
+    frame key only, the in-kernel RNG is keyed on global pixel ids, and
+    jitter is pixel-keyed — so for a fixed spp-axis size the image is
+    bit-invariant to device count, px-shard layout and perm, and with
+    spp axis 1 it equals the fused engine's.  spp shard i draws sample
+    stream i.  With the thin-lens aperture open XLA may contract the
+    lens mul-adds differently inside shard_map, so isolated pixels can
+    differ by about one ulp across device counts."""
+    from parallelraytracing_tpu.ops.rays import (frame_stream_seeds,
+                                                 generate_camera_rays_ids)
+    from parallelraytracing_tpu.ops.trace_kernel import trace_paths
 
     n_px = mesh.shape["px"]
     n_spp = mesh.shape["spp"]
-    r = cfg.pixel_count
-    tile = rows * LANES
-    blk = -(-r // n_px)
-    blk += (-blk) % tile  # per-device block must tile evenly
-    if perm is None:
+    blk = -(-cfg.pixel_count // n_px)
+    if perm is None:  # scanline order; pad slots trace dummy rays
         perm = jnp.arange(n_px * blk, dtype=jnp.int32)
     assert perm.shape == (n_px * blk,), (perm.shape, n_px * blk)
 
-    # Device-independent seeds, derived once from the frame key: spp
-    # shard i offsets them by i (sample stream i), px shards share them.
     jseed0, seed0 = frame_stream_seeds(key)
     jseed0 = jseed0.astype(jnp.int32)  # spp-offset math below stays int32
     if cfg.qmc:
-        # QMC (cfg.qmc): the jitter/lens rotation seed is
-        # frame-INDEPENDENT (same derivation as the fused engine, so the
-        # 1x1-mesh bit-identity contract holds) and the caller passes
-        # this sample's Halton point; the path seed stays MC.
+        # frame-independent rotation seed (the fused engine's, so the 1x1
+        # contract holds) plus this sample's Halton point
         from parallelraytracing_tpu.ops.rays import qmc_rotation_seed
         if qpt is None:
             raise ValueError("cfg.qmc requires this sample's Halton "
                              "point (qpt) — see ops/rays.halton_qpt")
         jseed0 = qmc_rotation_seed(cfg.seed).astype(jnp.int32)
 
+    def trace_block(t, cam, seed0, jseed0, ids, spp_i, qpt):
+        # sample stream spp_i: odd-stride offsets of both seeds
+        sstep = jnp.int32(0x632BE5AB)
+        seed = seed0 + spp_i * sstep
+        jseed = (jseed0 + spp_i * sstep).astype(jnp.uint32)
+        ids = ids.reshape(-1)
+        o, d = generate_camera_rays_ids(
+            cam, cfg.width, cfg.height, ids, None, cfg.jitter,
+            pix_seed=jseed, lens=cfg.lens, qpt=qpt)
+        return trace_paths(t, o, d, ids, seed, cfg, interpret)
+
     if n_px == 1 and n_spp == 1:
-        # Degenerate 1x1 mesh: the RNG/jitter streams are device-count
-        # independent by construction, so skipping shard_map + psum
-        # produces the BIT-identical image without their overhead —
-        # single-chip `sharded` costs the same as its single-chip twin
-        # (tested).
-        out = trace_block(tables, cam_params, seed0, jseed0, perm,
-                          jnp.int32(0), qpt)
-    else:
-        if qpt is None:
-            qpt = jnp.zeros((4,), jnp.float32)  # unused (non-QMC)
+        # 1x1 mesh: the streams are device-count independent, so skipping
+        # shard_map + psum gives the bit-identical image
+        return trace_block(tables, cam_params, seed0, jseed0, perm,
+                           jnp.int32(0), qpt)
+    if qpt is None:
+        qpt = jnp.zeros((4,), jnp.float32)  # unused (non-QMC)
 
-        def per_device(t, cam, seed0, jseed0, ids, qpt):
-            spp_i = jax.lax.axis_index("spp").astype(jnp.int32)
-            rad = trace_block(t, cam, seed0, jseed0, ids, spp_i, qpt)
-            return jax.lax.psum(rad, axis_name="spp")
+    def per_device(t, cam, seed0, jseed0, ids, qpt):
+        spp_i = jax.lax.axis_index("spp").astype(jnp.int32)
+        rad = trace_block(t, cam, seed0, jseed0, ids, spp_i, qpt)
+        return jax.lax.psum(rad, axis_name="spp")
 
-        shard = jax.shard_map(
-            per_device, mesh=mesh,
-            in_specs=(P(), P(), P(), P(), P("px"), P()),
-            out_specs=P("px", None),
-            check_vma=False)
-        out = shard(tables, cam_params, seed0, jseed0, perm, qpt)
-    if defer_gather:
-        # Caller keeps the film in perm order (Film.set_layout): the
-        # (n_px*blk, 3) result STAYS px-sharded — zero per-frame gathers,
-        # the accumulation is distributed like the tracing.
-        return out / n_spp
-    if inv is not None:
-        return jnp.take(out, inv, axis=0) / n_spp
-    return out[:r] / n_spp
-
-
-def _spp_stream_offset(seed0, jseed0, spp_i):
-    """(seed, jseed) for sample stream spp_i (odd-stride offsets)."""
-    sstep = jnp.int32(0x632BE5AB)
-    return ((seed0 + spp_i * sstep)[None],
-            (jseed0 + spp_i * sstep).astype(jnp.uint32))
-
-
-def render_frame_sharded_fused(
-    tables,
-    cam_params: jax.Array,
-    key: jax.Array,
-    cfg: RenderConfig,
-    mesh: Mesh,
-    rows: int = 2,
-    interpret: bool = False,
-    perm: jax.Array | None = None,
-    inv: jax.Array | None = None,
-    defer_gather: bool = False,
-    qpt: jax.Array | None = None,
-) -> jax.Array:
-    """Multi-chip frame through the fused Pallas kernel at FULL feature
-    parity with the single-chip fused engine: each ("px","spp") device
-    runs the VMEM-resident megakernel — including NEE, hot/cold triangle
-    split and in-kernel TLAS/BLAS instancing — on its pixel block
-    (driver + determinism contract: _sharded_pallas_frame).
-
-    tables: engines.tables.PallasSceneTables (replicated to every device
-    with a single P() spec — the scene upload the reference repeats per
-    backend, cuda_megakernel/renderer.cu:276-355, done once per mesh).
-
-    perm/inv (optional): a pixel-id permutation of length n_px*blk
-    (e.g. Morton order padded with out-of-range ids) and its inverse of
-    length cfg.pixel_count.  Each device then traces a COHERENT screen
-    block instead of a scanline strip — the 1.34x Morton-tile win the
-    fused engine gets (RESULTS.md) — and the result is gathered back to
-    pixel order at the end.
-
-    The per-device block must be a multiple of rows*128 rays."""
-    from parallelraytracing_tpu.engines.tables import trace_tables
-    from parallelraytracing_tpu.ops.rays import generate_camera_rays_ids
-
-    def trace_block(t, cam, seed0, jseed0, ids, spp_i, qpt):
-        ids = ids.reshape(-1)
-        seed, jseed = _spp_stream_offset(seed0, jseed0, spp_i)
-        o, d = generate_camera_rays_ids(
-            cam, cfg.width, cfg.height, ids, None, cfg.jitter,
-            pix_seed=jseed, lens=cfg.lens, qpt=qpt)
-        # Global pixel ids key the in-kernel RNG, so the image is
-        # invariant to the px-shard layout.
-        pix = ids.astype(jnp.float32)
-        return trace_tables(t, o, d, pix, seed, rows, cfg, interpret)
-
-    return _sharded_pallas_frame(trace_block, cfg, mesh, rows, perm, inv,
-                                 defer_gather, tables, cam_params, key,
-                                 qpt)
-
-
-def render_frame_sharded_segmented(
-    tables,
-    cam_params: jax.Array,
-    key: jax.Array,
-    cfg: RenderConfig,
-    mesh: Mesh,
-    rows: int = 24,
-    segment: int = 5,
-    schedule: tuple = (),
-    sort_rays: str = "octant",
-    interpret: bool = False,
-    perm: jax.Array | None = None,
-    inv: jax.Array | None = None,
-    defer_gather: bool = False,
-    qpt: jax.Array | None = None,
-) -> jax.Array:
-    """Multi-chip frame through the SEGMENTED wavefront engine: each
-    ("px","spp") device runs the Pallas bounce-segment loop on its own
-    pixel block, compacting and Morton/octant re-sorting its pool
-    between segments DEVICE-LOCALLY (a per-shard argsort — no
-    collectives; the ray pool never crosses chips, exactly like the
-    reference's per-GPU wavefront queues, cuda_wavefront/renderer.h:100).
-    Driver + determinism contract: _sharded_pallas_frame; additionally
-    the compaction permutation provably cannot change the image (RNG is
-    keyed on absolute depth), so any schedule is bit-identical, and a
-    1x1 mesh bit-matches the single-chip wavefront_fused engine
-    (tested).
-
-    This is the multi-chip route for triangle-heavy scenes: the growing
-    segment schedule's mesh win (dragon 1517 -> 918 ms single-chip,
-    RESULTS.md) carries over per device.
-
-    tables must be packed with allow_partial=False (the segment kernel
-    carries 14 ray planes and opts out of the hot/cold split —
-    engines/tables.build_scene_tables)."""
-    from parallelraytracing_tpu.engines.wavefront_fused import \
-        _segmented_body
-    from parallelraytracing_tpu.ops.rays import generate_camera_rays_ids
-
-    def trace_block(t, cam, seed0, jseed0, ids, spp_i, qpt):
-        ids = ids.reshape(-1)
-        blk = ids.shape[0]
-        seed, jseed = _spp_stream_offset(seed0, jseed0, spp_i)
-        o, d = generate_camera_rays_ids(
-            cam, cfg.width, cfg.height, ids, None, cfg.jitter,
-            pix_seed=jseed, lens=cfg.lens, qpt=qpt)
-        pix = ids.astype(jnp.float32)      # global ids key the RNG
-        loc = jnp.arange(blk, dtype=jnp.float32)  # local scatter slots
-        # Out-of-range pad ids trace as dummy rays (at most one tile's
-        # worth on the last shard); their radiance scatters to slots the
-        # film layout never reads, so the first-segment launch bound is
-        # simply the whole block.
-        return _segmented_body(t, o, d, pix, loc, jnp.int32(blk), seed,
-                               rows, segment, cfg, interpret, sort_rays,
-                               0, tuple(schedule), out_len=blk)
-
-    return _sharded_pallas_frame(trace_block, cfg, mesh, rows, perm, inv,
-                                 defer_gather, tables, cam_params, key,
-                                 qpt)
+    shard = jax.shard_map(
+        per_device, mesh=mesh,
+        in_specs=(P(), P(), P(), P(), P("px"), P()),
+        out_specs=P("px", None),
+        check_vma=False)
+    return shard(tables, cam_params, seed0, jseed0, perm, qpt) / n_spp

@@ -59,19 +59,24 @@ def run_diagnostics(verbose: bool = True) -> Dict[str, dict]:
                                         ScenePreset, available_engines,
                                         create_renderer)
     from parallelraytracing_tpu.core.camera import default_camera
-    from parallelraytracing_tpu.utils.sync import device_sync
 
     cfg = RenderConfig(width=16, height=8, max_depth=3, seed=0,
                        intersect_chunk=8, ray_tile=1 << 10)
+    import jax
+    on_gpu = jax.devices()[0].platform == "gpu"
+    needs_gpu = []
     for name in available_engines():
         try:
             scene = Scene(ScenePreset.MATERIAL_TEST)
             film = Film(cfg.width, cfg.height)
             r = create_renderer(name)
+            if hasattr(r, "interpret") and not on_gpu:
+                needs_gpu.append(name)  # a trace-kernel engine
+                continue
             t0 = time.perf_counter()
             r.init(film, scene, default_camera(cfg.width, cfg.height), cfg)
             r.progressive_render()
-            device_sync(film.accum)
+            jax.block_until_ready(film.accum)
             import numpy as np
             img = np.asarray(film.hdr_average())
             ok = bool(np.isfinite(img).all() and img.max() > 0)
@@ -80,6 +85,10 @@ def run_diagnostics(verbose: bool = True) -> Dict[str, dict]:
         except Exception as e:
             record(f"engine:{name}", False,
                    f"{type(e).__name__}: {str(e)[:120]}")
+    if needs_gpu:
+        record("kernel engines", True,
+               f"{', '.join(needs_gpu)}: not probed, they need a CUDA GPU "
+               f"(platform is {jax.devices()[0].platform})")
 
     return results
 

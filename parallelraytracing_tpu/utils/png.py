@@ -1,7 +1,7 @@
 """Dependency-free PNG writer (RGBA8 / RGB8).
 
-The reference displays through OpenGL (src/opengl/*); headless TPU boxes
-write PNGs instead. Pure stdlib (zlib + struct)."""
+The reference displays through OpenGL (src/opengl/*); headless accelerator
+hosts write PNGs instead. Pure stdlib (zlib + struct)."""
 
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Profiling / tracing hooks.
 
-The TPU counterpart of the reference's observability layer: host-side
+The counterpart of the reference's observability layer: host-side
 chrono brackets + ImGui graphs (main.cpp:265-462,512-532) and external
 Nsight profiling (wavefront.md:106-114).  Here:
 

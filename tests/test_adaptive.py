@@ -28,6 +28,8 @@ CFG = RenderConfig(width=64, height=32, max_depth=5, seed=3,
 def render(engine, preset, cfg, frames, **attrs):
     film = Film(cfg.width, cfg.height)
     r = create_renderer(engine)
+    if hasattr(r, "interpret"):  # a kernel engine
+        r.interpret = True
     for k, v in attrs.items():
         setattr(r, k, v)
     r.init(film, Scene(preset), default_camera(cfg.width, cfg.height), cfg)
@@ -37,17 +39,15 @@ def render(engine, preset, cfg, frames, **attrs):
 
 
 def test_warmup_bit_matches_fused():
-    fa, _ = render("adaptive", ScenePreset.MATERIAL_TEST, CFG, 3,
-                   rows=2, warmup=4)
-    fu, _ = render("fused", ScenePreset.MATERIAL_TEST, CFG, 3, rows=2)
+    fa, _ = render("adaptive", ScenePreset.MATERIAL_TEST, CFG, 3, warmup=4)
+    fu, _ = render("fused", ScenePreset.MATERIAL_TEST, CFG, 3)
     assert np.array_equal(np.asarray(fa.hdr_average()),
                           np.asarray(fu.hdr_average()))
 
 
 def test_budget_concentrates_and_mean_stays_unbiased():
-    fa, ra = render("adaptive", ScenePreset.MATERIAL_TEST, CFG, 12,
-                    rows=2, warmup=3, budget=0.5)
-    fu, _ = render("fused", ScenePreset.MATERIAL_TEST, CFG, 12, rows=2)
+    fa, ra = render("adaptive", ScenePreset.MATERIAL_TEST, CFG, 12, warmup=3, budget=0.5)
+    fu, _ = render("fused", ScenePreset.MATERIAL_TEST, CFG, 12)
     a = np.asarray(fa.hdr_average())
     u = np.asarray(fu.hdr_average())
     assert np.isfinite(a).all()
@@ -68,16 +68,13 @@ def test_equal_budget_beats_uniform_on_cornell():
     mse = lambda im: float(((im - ref) ** 2).mean())
     # 6 full-frame equivalents each: uniform 6 vs adaptive 3 + 6 halves
     # (measured ratio ~0.61; larger configs gave 0.56 — see STATUS.md)
-    u = np.asarray(render("fused", ScenePreset.CORNELL, cfg, 6,
-                          rows=2)[0].hdr_average())
-    a = np.asarray(render("adaptive", ScenePreset.CORNELL, cfg, 9,
-                          rows=2, warmup=3, budget=0.5)[0].hdr_average())
+    u = np.asarray(render("fused", ScenePreset.CORNELL, cfg, 6)[0].hdr_average())
+    a = np.asarray(render("adaptive", ScenePreset.CORNELL, cfg, 9, warmup=3, budget=0.5)[0].hdr_average())
     assert mse(a) < 0.8 * mse(u), (mse(u), mse(a))
 
 
 def test_reset_progressive_clears_stats():
-    _, r = render("adaptive", ScenePreset.MATERIAL_TEST, CFG, 6,
-                  rows=2, warmup=2)
+    _, r = render("adaptive", ScenePreset.MATERIAL_TEST, CFG, 6, warmup=2)
     assert float(np.asarray(r._n).max()) > 0
     r.reset_progressive()
     assert float(np.asarray(r._n).max()) == 0.0

@@ -146,8 +146,8 @@ class TestBVHEngine:
                                    imgs["bvh"].mean(), rtol=1e-3)
 
     def test_mesh_scene_via_bvh(self):
-        from parallelraytracing_tpu.core.mesh import load_ply
-        mesh = load_ply("/root/reference/assets/models/icosahedron.ply")
+        from parallelraytracing_tpu.core.mesh import icosphere
+        mesh = icosphere(1)
         s = Scene(preset=None)
         m = s.add_lambertian((0.8, 0.3, 0.3))
         s.add_mesh(mesh, m, ((1, 1, 1), (0, 0, 0), (0, 1, 0)))

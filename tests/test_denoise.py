@@ -28,6 +28,8 @@ CFG = RenderConfig(width=64, height=64, max_depth=5, seed=7,
 def _film(scene, cam, cfg, frames, engine="megakernel"):
     film = Film(cfg.width, cfg.height)
     r = create_renderer(engine)
+    if hasattr(r, "interpret"):  # a kernel engine
+        r.interpret = True
     r.init(film, scene, cam, cfg)
     for _ in range(frames):
         r.progressive_render()

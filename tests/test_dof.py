@@ -34,6 +34,8 @@ DOF = CFG.replace(lens_radius=0.35, focus_distance=9.0)
 def render(engine, cfg, frames=8, preset=ScenePreset.MATERIAL_TEST, **attrs):
     film = Film(cfg.width, cfg.height)
     r = create_renderer(engine)
+    if hasattr(r, "interpret"):  # a kernel engine
+        r.interpret = True
     for k, v in attrs.items():
         setattr(r, k, v)
     r.init(film, Scene(preset), default_camera(cfg.width, cfg.height), cfg)
@@ -46,10 +48,9 @@ def test_closed_aperture_is_pinhole_bit_exact():
     # lens_radius=0 must take the static pinhole path: same rays, same
     # RNG draws, bit-identical frames.
     for engine in ("megakernel", "fused"):
-        a = render(engine, CFG, frames=2, **({"rows": 2}
-                                             if engine == "fused" else {}))
+        a = render(engine, CFG, frames=2)
         b = render(engine, CFG.replace(lens_radius=0.0, focus_distance=4.2),
-                   frames=2, **({"rows": 2} if engine == "fused" else {}))
+                   frames=2)
         assert np.array_equal(a, b), engine
 
 
@@ -77,8 +78,8 @@ def test_lens_rays_share_the_focal_point():
 
 
 def test_fused_equals_wavefront_fused_with_open_aperture():
-    a = render("fused", DOF, frames=2, rows=2)
-    b = render("wavefront_fused", DOF, frames=2, rows=2, segment=2)
+    a = render("fused", DOF, frames=2)
+    b = render("wavefront_fused", DOF, frames=2, schedule=(2,))
     assert np.array_equal(a, b), "DoF broke the pixel-keyed bit-identity"
 
 
@@ -99,6 +100,8 @@ def _silhouette_scene():
 def _render_scene(engine, scene, cfg, frames, **attrs):
     film = Film(cfg.width, cfg.height)
     r = create_renderer(engine)
+    if hasattr(r, "interpret"):  # a kernel engine
+        r.interpret = True
     for k, v in attrs.items():
         setattr(r, k, v)
     r.init(film, scene, default_camera(cfg.width, cfg.height), cfg)
@@ -110,10 +113,10 @@ def _render_scene(engine, scene, cfg, frames, **attrs):
 def test_open_aperture_spreads_the_silhouette():
     # Eye is at (5,5,8), ~10.7 from the sphere; focus well short of it so
     # the sphere is strongly out of focus.
-    sharp = _render_scene("fused", _silhouette_scene(), CFG, 8, rows=2)
+    sharp = _render_scene("fused", _silhouette_scene(), CFG, 8)
     blurred = _render_scene("fused", _silhouette_scene(),
                             CFG.replace(lens_radius=2.0, focus_distance=4.0),
-                            8, rows=2)
+                            8)
     lit = lambda im: int((im.sum(axis=1) > 1e-4).sum())
     assert lit(blurred) > lit(sharp) * 1.2, (lit(sharp), lit(blurred))
     # Same light transport: the oracle agrees statistically under the lens.
@@ -122,5 +125,5 @@ def test_open_aperture_spreads_the_silhouette():
                            24)
     pallas = _render_scene("fused", _silhouette_scene(),
                            CFG.replace(lens_radius=2.0, focus_distance=4.0),
-                           24, rows=2)
+                           24)
     assert abs(oracle.mean() - pallas.mean()) / max(oracle.mean(), 1e-6) < 0.05

@@ -45,11 +45,14 @@ def test_lbvh_large_random():
     np.testing.assert_array_less((c + r).max(0), node_max[0] + 1e-9)
 
 
-def test_ply_matches_python_loader():
-    from parallelraytracing_tpu.core.mesh import _load_ply_python
+@pytest.mark.parametrize("binary", [True, False])
+def test_ply_matches_python_loader(tmp_path, binary):
+    from parallelraytracing_tpu.core.mesh import (_load_ply_python,
+                                                  icosphere, save_ply)
 
-    for name in ("bunny", "icosahedron"):
-        path = f"/root/reference/assets/models/{name}.ply"
+    for level in (1, 3):
+        path = str(tmp_path / f"ico{level}.ply")
+        save_ply(path, icosphere(level, seed=level), binary=binary)
         py = _load_ply_python(path)
         v, n, uv, idx = native.load_ply(path)
         np.testing.assert_allclose(py.vertices, v, rtol=1e-6)

@@ -16,6 +16,8 @@ def render(preset, nee: bool, frames: int, seed=0, engine="megakernel"):
                        intersect_chunk=32, ray_tile=1 << 16, nee=nee)
     film = Film(cfg.width, cfg.height)
     r = create_renderer(engine)
+    if hasattr(r, "interpret"):  # a kernel engine
+        r.interpret = True
     r.init(film, Scene(preset), default_camera(cfg.width, cfg.height), cfg)
     for _ in range(frames):
         r.progressive_render()

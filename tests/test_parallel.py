@@ -90,16 +90,16 @@ def test_sharded_output_is_px_sharded():
 
 
 def test_sharded_fused_kernel_runs_on_mesh():
-    from parallelraytracing_tpu.engines.tables import build_scene_tables
+    from parallelraytracing_tpu.ops.trace_kernel import pack_scene
     from parallelraytracing_tpu.parallel.sharding import \
         render_frame_sharded_fused
 
     cfg = small_cfg(width=64, height=32, max_depth=4)
-    tables, _ = build_scene_tables(Scene(ScenePreset.MATERIAL_TEST), cfg)
+    tables = pack_scene(Scene(ScenePreset.MATERIAL_TEST), cfg.nee)
     cam = jnp.asarray(default_camera(cfg.width, cfg.height).ray_params())
     mesh = make_render_mesh(spp_axis=2)
     out = render_frame_sharded_fused(tables, cam, jax.random.PRNGKey(0),
-                                     cfg, mesh, rows=2, interpret=True)
+                                     cfg, mesh, interpret=True)
     out = np.asarray(out)
     assert out.shape == (cfg.pixel_count, 3)
     assert np.isfinite(out).all() and out.mean() > 0.1
@@ -111,12 +111,12 @@ def test_sharded_fused_invariant_to_device_count_and_layout():
     for a fixed spp-axis size the image is BIT-invariant to the number
     of px shards and to the pixel permutation."""
     from parallelraytracing_tpu.engines.fused import morton_pixel_perm
-    from parallelraytracing_tpu.engines.tables import build_scene_tables
+    from parallelraytracing_tpu.ops.trace_kernel import pack_scene
     from parallelraytracing_tpu.parallel.sharding import \
         render_frame_sharded_fused
 
     cfg = small_cfg(width=64, height=32, max_depth=4, jitter=True)
-    tables, _ = build_scene_tables(Scene(ScenePreset.MATERIAL_TEST), cfg)
+    tables = pack_scene(Scene(ScenePreset.MATERIAL_TEST), cfg.nee)
     cam = jnp.asarray(default_camera(cfg.width, cfg.height).ray_params())
     key = jax.random.PRNGKey(7)
 
@@ -126,18 +126,17 @@ def test_sharded_fused_invariant_to_device_count_and_layout():
     for n_dev in (1, 2, 8):
         mesh = make_render_mesh(jax.devices()[:n_dev], spp_axis=1)
         imgs.append(np.asarray(render_frame_sharded_fused(
-            tables, cam, key, cfg, mesh, rows=2, interpret=True)))
+            tables, cam, key, cfg, mesh, interpret=True)))
     # Morton-permuted shard blocks (the production layout)
     mesh = make_render_mesh(spp_axis=1)
     r = cfg.pixel_count
     blk = -(-r // mesh.shape["px"])
-    blk += (-blk) % (2 * 128)
     mperm, minv = morton_pixel_perm(cfg.width, cfg.height)
     perm = jnp.asarray(np.concatenate(
         [mperm, np.arange(r, mesh.shape["px"] * blk)]).astype(np.int32))
-    imgs.append(np.asarray(render_frame_sharded_fused(
-        tables, cam, key, cfg, mesh, rows=2, interpret=True,
-        perm=perm, inv=jnp.asarray(minv))))
+    out = render_frame_sharded_fused(tables, cam, key, cfg, mesh,
+                                     interpret=True, perm=perm)
+    imgs.append(np.asarray(out)[minv])  # perm order -> pixel order
     for other in imgs[1:]:
         np.testing.assert_array_equal(imgs[0], other)
 
@@ -146,6 +145,8 @@ def _render_engine(engine, scene, cfg, frames=3, **attrs):
     from parallelraytracing_tpu import Film, create_renderer
     film = Film(cfg.width, cfg.height)
     r = create_renderer(engine)
+    if hasattr(r, "interpret"):  # a kernel engine
+        r.interpret = True
     for k, v in attrs.items():
         setattr(r, k, v)
     r.init(film, scene, default_camera(cfg.width, cfg.height), cfg)
@@ -161,18 +162,16 @@ def test_sharded_engine_bitmatches_fused_without_jitter():
     streams, device-independent frame seed)."""
     cfg = RenderConfig(width=64, height=32, max_depth=4, seed=5,
                        jitter=False)
-    a = _render_engine("sharded", Scene(ScenePreset.MATERIAL_TEST), cfg,
-                       rows=2)
-    b = _render_engine("fused", Scene(ScenePreset.MATERIAL_TEST), cfg,
-                       rows=2)
+    a = _render_engine("sharded", Scene(ScenePreset.MATERIAL_TEST), cfg)
+    b = _render_engine("fused", Scene(ScenePreset.MATERIAL_TEST), cfg)
     np.testing.assert_array_equal(a, b)
 
 
 def test_sharded_engine_mesh_scene_matches_fused():
     """Triangle tables (incl. the hot/cold split machinery) work under
     shard_map: a PLY-mesh scene renders identically to fused."""
-    from parallelraytracing_tpu.core.mesh import load_ply
-    mesh = load_ply("/root/reference/assets/models/icosahedron.ply")
+    from parallelraytracing_tpu.core.mesh import icosphere
+    mesh = icosphere(0)
 
     def make():
         s = Scene(preset=None)
@@ -186,8 +185,8 @@ def test_sharded_engine_mesh_scene_matches_fused():
 
     cfg = RenderConfig(width=48, height=32, max_depth=4, seed=2,
                        jitter=False)
-    a = _render_engine("sharded", make(), cfg, rows=2, frames=2)
-    b = _render_engine("fused", make(), cfg, rows=2, frames=2)
+    a = _render_engine("sharded", make(), cfg, frames=2)
+    b = _render_engine("fused", make(), cfg, frames=2)
     assert np.isfinite(a).all()
     np.testing.assert_array_equal(a, b)
 
@@ -196,10 +195,10 @@ def test_sharded_engine_instanced_scene_matches_fused():
     """In-kernel TLAS/BLAS instancing works under shard_map (the r2
     sharded engine silently rendered the baked copy): geometry stays
     ∝ unique meshes AND the image equals fused."""
-    from parallelraytracing_tpu.core.mesh import load_ply
+    from parallelraytracing_tpu.core.mesh import icosphere
 
     def instanced_scene():
-        mesh = load_ply("/root/reference/assets/models/icosahedron.ply")
+        mesh = icosphere(0)
         s = Scene(preset=None)
         red = s.add_lambertian((0.9, 0.2, 0.2))
         metal = s.add_metal((0.9, 0.9, 0.9), 0.05)
@@ -220,18 +219,18 @@ def test_sharded_engine_instanced_scene_matches_fused():
     from parallelraytracing_tpu import Film, create_renderer
     film = Film(cfg.width, cfg.height)
     r = create_renderer("sharded")
-    r.rows = 2
+    r.interpret = True  # Triton interpret mode on CPU
     r.init(film, s, default_camera(cfg.width, cfg.height), cfg)
     assert r._tables.inst is not None
     n_unique = len(np.asarray(mesh.indices)) // 3
-    assert np.asarray(r._tables.inst[0]).shape[1] == n_unique
+    assert r._tables.itri.shape[0] == n_unique  # stored once
     assert int(np.asarray(r._scene_data.tri_valid).sum()) == 0
     for _ in range(2):
         r.progressive_render()
     a = np.asarray(film.hdr_average())
 
     s2, _ = instanced_scene()
-    b = _render_engine("fused", s2, cfg, rows=2, frames=2)
+    b = _render_engine("fused", s2, cfg, frames=2)
     np.testing.assert_array_equal(a, b)
 
 
@@ -241,16 +240,14 @@ def test_sharded_engine_nee_matches_fused():
     non-NEE image."""
     cfg = RenderConfig(width=48, height=32, max_depth=4, seed=1,
                        jitter=False, nee=True)
-    a = _render_engine("sharded", Scene(ScenePreset.CORNELL), cfg,
-                       rows=2, frames=2)
-    b = _render_engine("fused", Scene(ScenePreset.CORNELL), cfg,
-                       rows=2, frames=2)
+    a = _render_engine("sharded", Scene(ScenePreset.CORNELL), cfg, frames=2)
+    b = _render_engine("fused", Scene(ScenePreset.CORNELL), cfg, frames=2)
     # Same samples; XLA reassociates the NEE contribution's multiply
     # chain differently under shard_map, so agreement is to float
     # tolerance (~1e-7 observed), not bitwise like the non-NEE configs.
     np.testing.assert_allclose(a, b, rtol=2e-5, atol=2e-6)
     c = _render_engine("sharded", Scene(ScenePreset.CORNELL),
-                       cfg.replace(nee=False), rows=2, frames=2)
+                       cfg.replace(nee=False), frames=2)
     assert np.abs(a - c).max() > 1e-4
 
 
@@ -270,6 +267,7 @@ def test_sharded_engine_end_to_end():
 
     film = Film(cfg.width, cfg.height)
     r = create_renderer("sharded")
+    r.interpret = True  # Triton interpret mode on CPU
     r.init(film, scene, default_camera(cfg.width, cfg.height), cfg)
     assert r._mesh.devices.size == 8
     for _ in range(8):
@@ -287,69 +285,3 @@ def test_sharded_engine_end_to_end():
     # different RNG streams: statistical agreement
     assert abs(img.mean() - ref.mean()) / max(ref.mean(), 1e-6) < 0.1
 
-
-def test_sharded_segmented_bitmatches_wavefront_fused():
-    """The SEGMENTED multi-chip path (per-device compaction + re-sort
-    between bounce segments, render_frame_sharded_segmented): the
-    8-device image equals the single-chip wavefront_fused engine's BIT
-    FOR BIT — device-local argsort compaction cannot change pixel-keyed
-    streams, and the shard layout cannot change global pixel ids."""
-    from parallelraytracing_tpu.core.mesh import load_ply
-    mesh = load_ply("/root/reference/assets/models/icosahedron.ply")
-
-    def make():
-        s = Scene(preset=None)
-        m = s.add_lambertian((0.8, 0.3, 0.2))
-        s.add_mesh(mesh, m, ((1.5, 1.5, 1.5), (0, 20, 0), (0, 1, 0)))
-        g = s.add_lambertian((0.5, 0.5, 0.5))
-        s.add_quad(30, 30, g, None)
-        light = s.add_emissive((8, 8, 8))
-        s.add_sphere(1.0, light, ((1, 1, 1), (0, 0, 0), (3, 7, 3)))
-        return s
-
-    cfg = RenderConfig(width=48, height=32, max_depth=6, seed=7)
-    a = _render_engine("wavefront_fused", make(), cfg, rows=2, frames=2,
-                       segment=3)
-    b = _render_engine("sharded", make(), cfg, rows=2, frames=2,
-                       segmented="1")          # 8-device mesh
-    np.testing.assert_array_equal(a, b)
-    c = _render_engine("sharded", make(), cfg, rows=2, frames=2,
-                       segmented="1", devices=jax.devices()[:2])
-    np.testing.assert_array_equal(a, c)
-
-
-def test_sharded_segmented_instanced_scene():
-    """In-kernel TLAS/BLAS instancing under the segmented multi-chip
-    path: memory stays ∝ unique meshes and the image bit-matches the
-    single-chip segmented engine."""
-    from parallelraytracing_tpu.core.mesh import load_ply
-
-    def make():
-        mesh = load_ply("/root/reference/assets/models/icosahedron.ply")
-        s = Scene(preset=None)
-        red = s.add_lambertian((0.9, 0.2, 0.2))
-        s.add_mesh_instances(
-            mesh, red, [((1, 1, 1), (0, 30 * i, 0), (i * 3.0 - 3.0, 1, 0))
-                        for i in range(3)])
-        g = s.add_lambertian((0.5, 0.5, 0.5))
-        s.add_quad(30, 30, g, None)
-        light = s.add_emissive((10, 10, 10))
-        s.add_sphere(1.0, light, ((1, 1, 1), (0, 0, 0), (4, 8, 4)))
-        return s
-
-    cfg = RenderConfig(width=48, height=32, max_depth=4, seed=3,
-                       jitter=False)
-    from parallelraytracing_tpu import Film, create_renderer
-    film = Film(cfg.width, cfg.height)
-    r = create_renderer("sharded")
-    r.rows = 2
-    r.segmented = "1"
-    r.init(film, make(), default_camera(cfg.width, cfg.height), cfg)
-    assert r._tables.inst is not None
-    assert int(np.asarray(r._scene_data.tri_valid).sum()) == 0
-    for _ in range(2):
-        r.progressive_render()
-    a = np.asarray(film.hdr_average())
-    b = _render_engine("wavefront_fused", make(), cfg, rows=2, frames=2,
-                       segment=2)
-    np.testing.assert_array_equal(a, b)

@@ -32,6 +32,8 @@ def _render(engine, cfg, frames=2, preset=ScenePreset.MATERIAL_TEST,
             scene=None, **attrs):
     film = Film(cfg.width, cfg.height)
     r = create_renderer(engine)
+    if hasattr(r, "interpret"):  # a kernel engine
+        r.interpret = True
     for k, v in attrs.items():
         setattr(r, k, v)
     r.init(film, scene if scene is not None else Scene(preset),
@@ -73,10 +75,10 @@ def test_rotated_sequence_is_stratified():
 
 
 def test_qmc_changes_the_image_and_stays_deterministic():
-    a = _render("fused", CFG, frames=2, rows=2)
-    b = _render("fused", CFG, frames=2, rows=2)
+    a = _render("fused", CFG, frames=2)
+    b = _render("fused", CFG, frames=2)
     assert np.array_equal(a, b), "QMC frames must stay reproducible"
-    c = _render("fused", CFG.replace(qmc=False), frames=2, rows=2)
+    c = _render("fused", CFG.replace(qmc=False), frames=2)
     assert not np.array_equal(a, c), "qmc=True silently no-oped"
 
 
@@ -84,8 +86,8 @@ def test_qmc_bit_contract_fused_wavefront_fused():
     # The fused-family bit-identity must survive QMC (the rotation is
     # pixel-keyed, the Halton point is a shared scalar).  Aperture open
     # so the lens dims (bases 5,7) are exercised too.
-    a = _render("fused", DOF, frames=3, rows=2)
-    b = _render("wavefront_fused", DOF, frames=3, rows=2, segment=2)
+    a = _render("fused", DOF, frames=3)
+    b = _render("wavefront_fused", DOF, frames=3, schedule=(2,))
     assert np.array_equal(a, b), "QMC broke the pixel-keyed bit-identity"
 
 
@@ -93,8 +95,8 @@ def test_qmc_sharded_matches_fused_bitwise():
     # qpt/rotation-seed threading through shard_map: the 8-virtual-device
     # sharded engine must produce the SAME image as single-chip fused
     # (device-count invariance of the pixel-keyed streams).
-    a = _render("fused", DOF, frames=2, rows=2)
-    b = _render("sharded", DOF, frames=2, rows=2)
+    a = _render("fused", DOF, frames=2)
+    b = _render("sharded", DOF, frames=2)
     assert np.array_equal(a, b), "sharded QMC diverged from fused"
 
 
@@ -106,10 +108,7 @@ def test_every_engine_accepts_qmc():
     for engine in ("megakernel", "wavefront", "bvh", "wavefront_bvh",
                    "tlas", "fused", "wavefront_fused", "sharded",
                    "adaptive"):
-        img = _render(engine, small, frames=1,
-                      **({"rows": 2} if engine in
-                         ("fused", "wavefront_fused", "sharded", "adaptive")
-                         else {}))
+        img = _render(engine, small, frames=1)
         assert np.isfinite(img).all(), engine
 
 

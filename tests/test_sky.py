@@ -43,6 +43,8 @@ def sky_scene(sun=True):
 def render(engine, scene, cfg=CFG, frames=1, **attrs):
     film = Film(cfg.width, cfg.height)
     r = create_renderer(engine)
+    if hasattr(r, "interpret"):  # a kernel engine
+        r.interpret = True
     for k, v in attrs.items():
         setattr(r, k, v)
     r.init(film, scene, default_camera(cfg.width, cfg.height), cfg)
@@ -77,8 +79,8 @@ def test_constant_sky_unchanged():
     s = Scene(ScenePreset.MATERIAL_TEST)
     data = s.build()
     assert data.sky_top is None and data.sun is None
-    from parallelraytracing_tpu.engines.tables import build_scene_tables
-    t, _ = build_scene_tables(s, CFG)
+    from parallelraytracing_tpu.ops.trace_kernel import pack_scene
+    t = pack_scene(s, CFG.nee)
     assert len(t.sky) == 3
 
 
@@ -97,15 +99,15 @@ def test_pallas_engines_match_jnp_sky():
     lambertian sphere, the Pallas kernels' in-kernel sky must equal the
     jnp model to float tolerance (rsqrt vs 1/sqrt ulp)."""
     a = render("megakernel", sky_scene())
-    b = render("fused", sky_scene(), rows=2)
-    c = render("wavefront_fused", sky_scene(), rows=2, segment=2)
+    b = render("fused", sky_scene())
+    c = render("wavefront_fused", sky_scene(), schedule=(2,))
     assert np.abs(a - b).max() < 1e-5 * max(1.0, float(a.max()))
     np.testing.assert_array_equal(b, c)
 
 
 def test_gradient_without_sun():
     a = render("megakernel", sky_scene(sun=False))
-    b = render("fused", sky_scene(sun=False), rows=2)
+    b = render("fused", sky_scene(sun=False))
     assert np.isfinite(a).all()
     # top of frame reads less red (gradient toward the blue zenith;
     # blue stays 1.0 end to end in this spec, red lerps 1.0 -> 0.5)
@@ -115,6 +117,5 @@ def test_gradient_without_sun():
 
 def test_sky_demo_preset_renders():
     cfg = CFG.replace(max_depth=4)
-    img = render("fused", Scene(ScenePreset.SKY_DEMO), cfg, frames=2,
-                 rows=2)
+    img = render("fused", Scene(ScenePreset.SKY_DEMO), cfg, frames=2)
     assert np.isfinite(img).all() and img.max() > 0.5

@@ -3,7 +3,7 @@
 The load-bearing property is permutation invariance: RNG is keyed on
 (pixel id, absolute depth) inside the kernel, so compaction and the
 between-segment Morton re-sort must leave the image BIT-identical to the
-unsorted run — the TPU analogue of the reference wavefront's
+unsorted run — the kernel's answer to the reference wavefront's
 determinism-under-queue-order concern (warp-aggregated queues,
 cuda_wavefront/renderer.cu:43-100)."""
 
@@ -20,6 +20,8 @@ pytestmark = pytest.mark.slow  # segment-kernel interpret renders
 def render(engine, preset, cfg, frames=8, **attrs):
     film = Film(cfg.width, cfg.height)
     r = create_renderer(engine)
+    if hasattr(r, "interpret"):  # a kernel engine
+        r.interpret = True
     for k, v in attrs.items():
         setattr(r, k, v)
     r.init(film, Scene(preset), default_camera(cfg.width, cfg.height), cfg)
@@ -34,7 +36,7 @@ CFG = RenderConfig(width=64, height=32, max_depth=6, seed=3,
 
 def test_sort_is_bit_invariant():
     imgs = [render("wavefront_fused", ScenePreset.MATERIAL_TEST, CFG,
-                   frames=2, rows=2, segment=2, sort_rays=mode)
+                   frames=2, schedule=(2,), sort_rays=mode)
             for mode in ("octant", "origin", "")]
     assert np.array_equal(imgs[0], imgs[1]), "sort key changed the image"
     assert np.array_equal(imgs[0], imgs[2]), "re-sorting changed the image"
@@ -42,9 +44,9 @@ def test_sort_is_bit_invariant():
 
 def test_segment_size_is_bit_invariant():
     a = render("wavefront_fused", ScenePreset.MATERIAL_TEST, CFG, frames=2,
-               rows=2, segment=2)
+               schedule=(2,))
     b = render("wavefront_fused", ScenePreset.MATERIAL_TEST, CFG, frames=2,
-               rows=2, segment=3)
+               schedule=(3,))
     assert np.array_equal(a, b), "segment size changed the image"
 
 
@@ -53,25 +55,23 @@ def test_segment_schedule_is_bit_invariant():
     # the bounce-1 sky deaths) must render the bit-identical image: RNG
     # is keyed on (pixel, absolute depth), never on segment boundaries.
     a = render("wavefront_fused", ScenePreset.MATERIAL_TEST, CFG, frames=2,
-               rows=2, segment=3)
+               schedule=(3,))
     b = render("wavefront_fused", ScenePreset.MATERIAL_TEST, CFG, frames=2,
-               rows=2, segment=3, segment_first=1)
+               schedule=(1, 3))
     assert np.array_equal(a, b), "segment schedule changed the image"
     c = render("wavefront_fused", ScenePreset.MATERIAL_TEST, CFG, frames=2,
-               rows=2, segment=3, schedule=(1, 2, 4))
+               schedule=(1, 2, 4))
     assert np.array_equal(a, c), "full schedule changed the image"
 
 
 def test_statistically_matches_oracle():
     a = render("megakernel", ScenePreset.MATERIAL_TEST, CFG, frames=24)
-    b = render("wavefront_fused", ScenePreset.MATERIAL_TEST, CFG, frames=24,
-               rows=2, segment=3)
+    b = render("wavefront_fused", ScenePreset.MATERIAL_TEST, CFG, frames=24)
     assert abs(a.mean() - b.mean()) / max(a.mean(), 1e-6) < 0.05
     close = np.abs(a - b) < 0.25 * (a + b) + 0.05
     assert close.mean() > 0.85
 
 
 def test_finite_on_cornell():
-    img = render("wavefront_fused", ScenePreset.CORNELL, CFG, frames=2,
-                 rows=2, segment=2)
+    img = render("wavefront_fused", ScenePreset.CORNELL, CFG, frames=2, schedule=(2,))
     assert np.isfinite(img).all() and (img >= 0).all()
